@@ -1,17 +1,13 @@
 """On-device A/B of the 100k-ParticleBeam env observation across batch
-sizes and observation methods.
-
-Resolves VERDICT r3 items 1-2: the north-star metric
-(``particle_env_steps_per_s``, BASELINE.md >= 1e6 env-steps/s/chip at
-ParticleBeam-100k fidelity) must be measured at the *adjudicated* batch
-size and through the adjudicated method:
+sizes and observation methods:
 
   * ``moments``   — exact moment-sufficiency route
-    (``beam.as_parameter_beam()`` + fused moment sweep; algebraically
+    (``beam.as_parameter_beam()`` + the moment sweep; algebraically
     identical observations for the EA's purely linear lattice).
-  * ``kernel``    — settings-amortized VMEM-resident Pallas moment sweep
-    (per-particle fidelity path; required once apertures interleave).
-  * ``particles`` — dense per-setting push (HBM-rebound baseline).
+  * ``kernel``    — settings-amortized moment sweep over the shared cloud
+    (``ops/sweep.py``; per-particle fidelity path, required once
+    apertures interleave).
+  * ``particles`` — dense per-setting push (the bandwidth-bound baseline).
 
 Each (method, B) cell is timed with the loop-carried delta-K harness
 (``lynx_tpu.profiling.marginal_seconds_per_iter``).  Prints one JSON line
@@ -98,4 +94,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    from lynx_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -87,6 +87,9 @@ def main(num_envs: int, rollout: int, warmup: int, measure: int) -> None:
 
 
 if __name__ == "__main__":
+    from lynx_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     parser = argparse.ArgumentParser()
     parser.add_argument("--num-envs", type=int, default=4096)
     parser.add_argument("--rollout", type=int, default=16)

@@ -15,12 +15,12 @@ measures the SAME metric two ways:
   time(sharded over N, same B).  Perfect partitioning with negligible
   collective cost gives ~1.0; a sweep that silently stops partitioning
   (replicates the whole batch per device) collapses toward 1/N.  This
-  ratio is what transfers to a pod, where per-chip compute scaling is
-  physical and only the partitioning overhead is at stake.  Reported as
+  ratio is what transfers to real devices, where per-device compute
+  scaling is physical and only the partitioning overhead is at stake.  Reported as
   ``scaling_efficiency_virtual``.
 * ``--distributed``: run under ``jax.distributed`` across real processes /
-  hosts (see ``docs/distributed.md`` for the pod launch command); emits
-  true weak-scaling efficiency from process 0 (distinct physical chips).
+  hosts (see ``docs/distributed.md`` for the launch command); emits
+  true weak-scaling efficiency from process 0 (distinct physical devices).
 
 Prints one JSON line per measurement plus a final summary line.
 """
@@ -152,9 +152,9 @@ def run_virtual(per_device: int, max_devices: int) -> dict:
 
 def run_distributed(per_device: int) -> dict:
     """Same metric across real processes (one per host): launch this script
-    with ``--distributed`` on every host (see docs/distributed.md).  TPU
-    pod slices auto-discover the coordinator; other clusters export
-    ``COORDINATOR`` (host:port), ``NPROC`` and ``PROC_ID``."""
+    with ``--distributed`` on every host (see docs/distributed.md).  SLURM
+    and Open MPI clusters auto-discover the coordinator; other launches
+    export ``COORDINATOR`` (host:port), ``NPROC`` and ``PROC_ID``."""
     import jax
     from jax.sharding import Mesh
 
@@ -172,7 +172,7 @@ def run_distributed(per_device: int) -> dict:
     devices = jax.devices()
     mesh_full = Mesh(devices, ("batch",))
     t_full = _measure_throughput(mesh_full, per_device)
-    # Single-device reference measured on each process's OWN first chip (a
+    # Single-device reference measured on each process's OWN first card (a
     # remote process cannot address another host's device; this is pure
     # local compute, so processes cannot deadlock on it).
     mesh_one = Mesh(jax.local_devices()[:1], ("batch",))
@@ -213,6 +213,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    from lynx_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     # Virtual mode needs the fake-device flag BEFORE jax initializes.
     if "--distributed" not in _sys.argv:
         flags = os.environ.get("XLA_FLAGS", "")
@@ -224,9 +227,7 @@ if __name__ == "__main__":
 
         jax.config.update("jax_platforms", "cpu")
     elif os.environ.get("SCALING_FORCE_CPU"):
-        # CPU multi-process smoke runs (tests/test_scaling_harness.py):
-        # the JAX_PLATFORMS env var is ignored when an accelerator plugin
-        # is installed — the platform must be forced from Python.
+        # CPU multi-process smoke runs (tests/test_scaling_harness.py).
         import jax
 
         jax.config.update("jax_platforms", "cpu")

@@ -43,8 +43,7 @@ def main(steps: int = 300) -> None:
     # The whole loop runs on device: `tune` compiles `steps` value-and-grad +
     # Adam updates into one lax.scan, so a full tuning run is a handful of
     # dispatches (chunked only for progress printing) instead of one per step
-    # — the difference between ~1 ms and ~`steps` ms of dispatch floor on
-    # remotely-attached chips.
+    # — one dispatch cost instead of `steps` of them.
     from lynx_tpu.tuning import tune
 
     magnets, losses = tune(
@@ -66,6 +65,9 @@ def main(steps: int = 300) -> None:
 
 
 if __name__ == "__main__":
+    from lynx_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=300)
     main(parser.parse_args().steps)

@@ -1,15 +1,15 @@
 """Multi-chip gradient-based tuning over a (batch, particles) device mesh.
 
 The reference framework is single-process (SURVEY.md §2.4); lynx-tpu scales
-the same workload over a TPU slice with ``jax.sharding``: lattice-settings
+the same workload over several GPUs with ``jax.sharding``: lattice-settings
 batches ride the ``batch`` mesh axis, the macro-particle axis of the
 ``ParticleBeam`` is sharded over ``particles``, and XLA inserts every
 collective (moment reductions over the particle axis, gradient reductions
-over batch) on ICI.
+over batch), which NCCL carries over NVLink.
 
-Runs anywhere: on a machine without 8 accelerators it uses 8 virtual CPU
+Runs anywhere: on a machine without accelerators it uses 8 virtual CPU
 devices, which is also exactly how ``tests/test_parallel.py`` validates the
-sharding — the program is identical on a real slice.
+sharding — the program is identical on a multi-GPU host.
 
 Run: python examples/multichip_tuning.py [--steps 30]
 """
@@ -96,6 +96,9 @@ def main(steps: int = 30) -> None:
 
 
 if __name__ == "__main__":
+    from lynx_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=30)
     main(parser.parse_args().steps)

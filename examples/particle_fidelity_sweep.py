@@ -6,10 +6,10 @@ the observation needs (see docs/performance.md, "moment sufficiency"):
 
 1. ``moments`` — purely linear lattice: sample moments are a sufficient
    statistic; observations are EXACTLY what pushing all N particles
-   yields, at ParameterBeam cost (~1000x faster on TPU).
+   yields, at ParameterBeam cost.
 2. ``kernel`` — apertures interleave (per-particle, per-setting
-   survival): the packed-Gram Pallas kernel evaluates only the aperture
-   masks per setting and rides the MXU for all moment reductions.
+   survival): the settings-amortized moment sweep (``ops/sweep.py``)
+   walks the shared cloud per setting and keeps only the moment sums.
 3. ``particles`` — the dense per-setting push (the baseline; what the
    reference's broadcast tracking does).
 
@@ -51,9 +51,9 @@ def main(B: int = 64, N: int = 20_000) -> None:
     )
     print(f"linear lattice: moment route vs dense push, max rel {drift:.2e}")
 
-    # -- route 2: aperture interleaved -> packed-Gram kernel ---------------
+    # -- route 2: aperture interleaved -> moment sweep ---------------------
     from lynx_tpu.accelerator.fused import particle_moment_plan
-    from lynx_tpu.ops.pallas_track import sweep_particle_moments
+    from lynx_tpu.ops.sweep import sweep_particle_moments
 
     elements = [
         lt.Drift(jnp.array([0.3])),
@@ -86,4 +86,7 @@ def main(B: int = 64, N: int = 20_000) -> None:
 
 
 if __name__ == "__main__":
+    from lynx_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main(*(int(a) for a in sys.argv[1:3]))

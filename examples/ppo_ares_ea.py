@@ -68,7 +68,7 @@ def gaussian_logp(mean, log_std, action):
 def make_collect_and_update(env, env_params, optimizer, rollout: int):
     """Build the jitted PPO step: rollout via lax.scan over the natively
     batched env (NOT vmap — batched tracking engages the framework's
-    table/Pallas fast paths), GAE, clipped surrogate update."""
+    sparse-table fast path), GAE, clipped surrogate update."""
     step = env.batched_step
     gamma, lam, clip_eps = 0.99, 0.95, 0.2
 
@@ -168,6 +168,9 @@ def main(updates: int = 20, num_envs: int = 512, rollout: int = 16) -> None:
 
 
 if __name__ == "__main__":
+    from lynx_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     parser = argparse.ArgumentParser()
     parser.add_argument("--updates", type=int, default=20)
     parser.add_argument("--num-envs", type=int, default=512)

@@ -1,8 +1,8 @@
-"""lynx-tpu: a TPU-native, JAX-first differentiable beam-dynamics framework.
+"""lynx-tpu: a JAX-first differentiable beam-dynamics framework.
 
 Capabilities mirror the reference (jank324/lynx, a fork of desy-ml/cheetah):
 fast, differentiable, vectorized linear beam optics for RL and gradient-based
-accelerator tuning — redesigned for JAX/XLA on TPU: functional pytree core,
+accelerator tuning — redesigned for JAX/XLA: functional pytree core,
 branch-free kernels, explicit-output diagnostics, mesh sharding.
 """
 

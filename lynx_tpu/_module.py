@@ -2,7 +2,7 @@
 
 The reference implementation (lynx/cheetah) builds its elements and beams on
 ``torch.nn.Module`` / a half-finished ``eqx.Module`` port and mutates fields
-in place (see reference ``lynx/accelerator/element.py:23``).  For a TPU-native
+in place (see reference ``lynx/accelerator/element.py:23``).  For a
 JAX framework we need every element and beam to be a *pytree* so that the
 whole lattice can flow through ``jax.jit`` / ``jax.grad`` / ``jax.vmap`` /
 ``jax.sharding`` as a single argument.

@@ -1,6 +1,6 @@
 """Physical aperture (collimator).
 
-TPU-native redesign: the reference culls lost particles with boolean indexing,
+JAX-native redesign: the reference culls lost particles with boolean indexing,
 changing the particle count at runtime (``lynx/accelerator/aperture.py:89``) —
 incompatible with XLA static shapes.  Here lost particles get survival weight 0
 and zeroed charge; the array shapes never change.  Observable semantics

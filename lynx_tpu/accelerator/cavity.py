@@ -117,8 +117,8 @@ class Cavity(Element):
         delta_energy = self.voltage * cos_phi
         outgoing_energy = energy + delta_energy
 
-        # 1. Linear part (table path above 512 flat batch — batched tiny
-        # matmuls are pathological on the MXU; see ops/table.py).
+        # 1. Linear part (table path above 512 flat batch instead of many
+        # tiny batched matmuls; see ops/table.py).
         batch_shape = jnp.broadcast_shapes(self.length.shape, energy.shape)
         flat_batch = 1
         for dim in batch_shape:

@@ -5,8 +5,9 @@ Reference behavior contract: ``lynx/accelerator/element.py``.
 Design: an element is a mutable pytree (see ``lynx_tpu._module``). Its
 ``transfer_map(energy)`` is a pure function of its array fields, so the whole
 lattice traces cleanly under jit/grad/vmap.  All matmuls on the physics path
-use ``Precision.HIGHEST`` — TPU matmuls default to bf16, which is far too
-coarse for beam optics (positions at 1e-9..1e-3 m scales).
+use ``Precision.HIGHEST``: at default precision XLA:GPU may run an f32
+contraction in TF32 on the tensor cores (10 mantissa bits, ~3 decimal
+digits), far too coarse for beam optics (positions at 1e-9..1e-3 m scales).
 """
 
 from __future__ import annotations
@@ -24,13 +25,13 @@ Array = jax.Array
 
 generate_unique_name = UniqueNameGenerator(prefix="unnamed_element")
 
-#: Full-precision matmul for physics (TPU default is bf16 — not acceptable).
+#: Full-precision matmul for physics (the GPU default may be TF32 — not
+#: acceptable).
 PRECISION = jax.lax.Precision.HIGHEST
 
 #: Opt-in: apply composed tables to ParticleBeam as coordinate-row
-#: multiply-adds (particle axis on the VPU lanes) instead of densifying to
-#: a (..., 7, 7) matmul.  Off by default pending on-device measurements —
-#: flip per-run to A/B the two layouts on real hardware.
+#: multiply-adds over the particle axis instead of densifying to a
+#: (..., 7, 7) matmul.  Off by default pending measurements on the card.
 PARTICLE_ROWS_PATH = False
 
 
@@ -39,7 +40,7 @@ def matmul(a: Array, b: Array) -> Array:
 
 
 def to_batch_last(tm: Array) -> Array:
-    """(..., 7, 7) -> (7, 7, ...): batch onto the VPU lane axes."""
+    """(..., 7, 7) -> (7, 7, ...): batch onto the trailing axes."""
     return jnp.moveaxis(tm, (-2, -1), (0, 1))
 
 
@@ -87,8 +88,8 @@ def apply_table(total, beam: Beam) -> Beam:
         dtype = beam.particles.dtype
         if PARTICLE_ROWS_PATH:
             # Push particles as 7 coordinate rows (..., N) through the
-            # sparse table — 49 fused multiply-adds on the VPU with the
-            # particle axis on the lanes, skipping structural zeros; no
+            # sparse table — 49 fused multiply-adds over the particle
+            # axis, skipping structural zeros; no
             # (..., 7, 7) map is densified and no (..., N, 7)-layout
             # matmul is issued.
             rows = [beam.particles[..., i] for i in range(7)]
@@ -140,7 +141,7 @@ def apply_transfer_map_batch_last(tm_bl: Array, beam: Beam) -> Beam:
 
     ParameterBeam moments stay in batch-last end-to-end (no transposes);
     ParticleBeam converts the single folded matrix back (the particle push
-    itself is MXU/bandwidth-friendly in standard layout).
+    itself is a bandwidth-bound contraction in standard layout).
     """
     if beam is Beam.empty:
         return beam
@@ -177,8 +178,8 @@ def apply_transfer_map(tm: Array, beam: Beam) -> Beam:
     * ``ParticleBeam``:  P' = P R^T   (reference ``element.py:71-92``)
 
     For large batches the moment propagation runs in batch-last layout
-    (batch on the lane axes -> VPU) — tiny batched 7x7 matmuls are
-    pathologically slow on the MXU.
+    (elementwise multiply-adds over the batch) instead of many tiny batched
+    7x7 matmuls.
     """
     if beam is Beam.empty:
         return beam
@@ -220,16 +221,6 @@ def apply_transfer_map(tm: Array, beam: Beam) -> Beam:
             mu, cov, beam.energy, total_charge=beam.total_charge
         )
     if isinstance(beam, ParticleBeam):
-        # NOTE on the implementation choice (profiled on TPU v5 lite,
-        # round 5): an unrolled rank-1 multiply-add chain measures 277 us
-        # at (32, 1e5) as a standalone dispatch (79% of the HBM roofline,
-        # no relayout copy) but is layout-UNANCHORED — inside a
-        # lax.fori_loop XLA then picks a coordinate-minor {2,1,0} carry
-        # layout whose 7-wide minor dim runs the fused pass at ~5% lane
-        # occupancy (13 ms/iter, 20x worse).  The batched matmul's
-        # convolution pins N-minor layouts everywhere and stays within
-        # ~2.2x of the roofline in BOTH contexts, so it wins for the
-        # library.
         particles = matmul(beam.particles, jnp.swapaxes(tm, -2, -1))
         return ParticleBeam(
             particles,
@@ -284,8 +275,8 @@ class Element(Module):
     def transfer_map_table(self, energy: Array):
         """Sparse-table form of the map (see ``ops/table.py``): a 7x7 list
         of ``(batch,)`` cells with literal 0/1 identity entries.  The
-        big-batch flush path and the fused Pallas kernel consume this; the
-        default slices the dense map (correct but dense)."""
+        big-batch flush path and the particle moment sweep consume this;
+        the default slices the dense map (correct but dense)."""
         from lynx_tpu.ops.table import table_from_batch_first
 
         return table_from_batch_first(self.transfer_map(energy))

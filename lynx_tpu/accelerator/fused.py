@@ -1,10 +1,10 @@
-"""Fused Pallas sweep path: adapters from elements to in-kernel map builders.
+"""Plans for the particle moment sweep: adapters from elements to map builders.
 
 Each supported element type contributes a list of ``(B,)`` parameter vectors
-and a pure builder ``f(params, energy) -> (7, 7, TILE)`` that reconstructs
-its transfer map *inside* the Pallas kernel using the exact same batch-last
-builders as the XLA path (``ops/rmatrix.py``) — one numerics codepath, two
-execution strategies.
+and a pure builder ``f(params, energy) -> table`` that reconstructs its
+transfer map as a sparse table (``ops/table.py``) from the same entry
+builders as the dense path (``ops/rmatrix.py``).  ``particle_moment_plan``
+composes them into the plan that ``ops/sweep.sweep_particle_moments`` walks.
 """
 
 from __future__ import annotations
@@ -147,8 +147,8 @@ def _build_custom(params, energy):
 
 
 def element_map_builder(element) -> Optional[Builder]:
-    """Return (param vectors, in-kernel builder) for a supported element,
-    or ``None`` if the element type has no fused builder."""
+    """Return (param vectors, table builder) for a supported element, or
+    ``None`` if the element type has no table builder."""
     if type(element) is Drift:
         return [element.length], _build_drift
     if type(element) is Quadrupole:
@@ -206,17 +206,6 @@ def element_map_builder(element) -> Optional[Builder]:
     return None
 
 
-def fused_flush_supported(run: list) -> bool:
-    return all(element_map_builder(el) is not None for el in run)
-
-
-def _flat_size(value) -> int:
-    size = 1
-    for dim in jnp.shape(value):
-        size *= dim
-    return size
-
-
 _IDENTITY_LAYOUT = [
     [1.0 if i == j else 0.0 for j in range(7)] for i in range(7)
 ]
@@ -226,7 +215,7 @@ def particle_moment_plan(
     elements: list, energy: Array, vec: Callable[[Array], Array]
 ):
     """Build the plan for the settings-amortized particle moment sweep
-    (``ops/pallas_track.fused_particle_moment_sweep``): maximal runs of
+    (``ops/sweep.sweep_particle_moments``): maximal runs of
     affine elements compose into ``("map", layout)`` entries whose dynamic
     cells are ``(B,)`` per-setting scalars, and ACTIVE apertures — the one
     per-particle, per-setting operation no moment algebra can absorb —
@@ -236,8 +225,6 @@ def particle_moment_plan(
     anything else per-particle (active screens/cavities): those runs route
     through the general tracking paths instead.
     """
-    from lynx_tpu.ops.pallas_track import _split_table
-
     vec_energy = vec(jnp.asarray(energy))
     # Compose in the energy's dtype: element parameters default to f32
     # (reference parity), and the dense path promotes them inside each
@@ -256,7 +243,7 @@ def particle_moment_plan(
             T = fn([vec(p).astype(dtype) for p in params], vec_energy)
             total = T if total is None else tbl.compose(T, total)
         group.clear()
-        layout, cells = _split_table(total)
+        layout, cells = tbl.split_table(total)
         if not cells and layout == _IDENTITY_LAYOUT:
             return
         offset = len(scalars)
@@ -295,45 +282,3 @@ def particle_moment_plan(
     flush_group()
     return tuple(entries), tuple(scalars)
 
-
-def plan_run(
-    builders: List[Builder], energy: Array, vec: Callable[[Array], Array]
-) -> List[tuple]:
-    """Build a fused-sweep run plan: maximal groups of batch-invariant
-    elements (every parameter AND the energy broadcast-size 1) are
-    pre-composed ONCE in XLA at ``(1,)`` shape and enter the kernel as
-    ``("const", layout, cells)`` entries — no per-setting map build at all;
-    everything else stays a ``("dyn", build_fn, vec'd params)`` entry.
-
-    The pre-composition runs through the same (differentiable) table
-    algebra, so gradients w.r.t. static elements' parameters flow through
-    the const cells.  See ``ops/pallas_track.fused_moment_sweep_plan``.
-    """
-    from lynx_tpu.ops.pallas_track import _split_table
-
-    energy_static = _flat_size(energy) == 1
-    energy_1 = jnp.reshape(energy, (-1,))[:1]
-    plan: List[tuple] = []
-    group: List[Builder] = []
-
-    def flush_group() -> None:
-        if not group:
-            return
-        total = None
-        for params, fn in group:
-            T = fn([jnp.reshape(p, (-1,)) for p in params], energy_1)
-            total = T if total is None else tbl.compose(T, total)
-        group.clear()
-        layout, cells = _split_table(total)
-        if not cells and layout == _IDENTITY_LAYOUT:
-            return  # pure identity (markers / inactive diagnostics): drop
-        plan.append(("const", layout, cells))
-
-    for params, fn in builders:
-        if energy_static and all(_flat_size(p) == 1 for p in params):
-            group.append((params, fn))
-        else:
-            flush_group()
-            plan.append(("dyn", fn, [vec(p) for p in params]))
-    flush_group()
-    return plan

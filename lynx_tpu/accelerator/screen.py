@@ -21,7 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from lynx_tpu.accelerator.element import Element
-from lynx_tpu.ops.histogram import screen_histogram_2d
+from lynx_tpu.ops.histogram import weighted_histogram_2d
 from lynx_tpu.particles import Beam, ParameterBeam, ParticleBeam
 
 Array = jax.Array
@@ -36,21 +36,12 @@ def _as_int_tuple(value) -> Tuple[int, ...]:
     return tuple(int(v) for v in np.asarray(value).ravel().tolist())
 
 
-#: lynx apertures produce exact 0/1 survival masks, so screen readings
-#: default to the int8 MXU COUNT kernel on TPU (1.5x the weighted path).
-#: Set False if you assign FRACTIONAL survival weights to beams that hit
-#: an active screen — the reading then takes the exact bf16x3 path.
-SCREEN_BINARY_SURVIVAL = True
-
-
 def screen_reading_particle(
     beam: ParticleBeam,
     resolution: Tuple[int, int],
     pixel_size: Array,
     binning: int,
     dtype=jnp.float32,
-    histogram_window=None,
-    platform: "str | None" = None,
 ) -> Array:
     """(..., H, W) histogram image of a particle beam."""
     w_bins = int(resolution[0] // binning)
@@ -64,27 +55,17 @@ def screen_reading_particle(
     ).astype(dtype)
     # Histogram (-y, x) straight into camera orientation: row r of the
     # image is the flipped y bin, so binning -y over the symmetric range
-    # IS the flip, and putting y first IS the transpose.  This saves two
-    # full-image relayout passes (swapaxes + flip cost a measured
-    # ~0.17 ms/track of the ~0.55 ms flagship read on TPU).  Values
-    # exactly ON an interior y-bin edge land one bin off versus
-    # bin-then-flip — a measure-zero float event.
-    if histogram_window is not None:
-        histogram_window = (histogram_window[1], histogram_window[0])
-    image = screen_histogram_2d(
+    # IS the flip, and putting y first IS the transpose: no full-image
+    # swapaxes + flip passes after the scatter.  Values exactly ON an
+    # interior y-bin edge land one bin off versus bin-then-flip — a
+    # measure-zero float event.
+    image = weighted_histogram_2d(
         -beam.ys,
         beam.xs,
         weights,
         x_range=(-half_h, half_h),
         y_range=(-half_w, half_w),
         bins=(h_bins, w_bins),
-        # No survival channel -> all-ones weights; survival channels are
-        # 0/1 aperture masks unless the user opted out — either way the
-        # TPU path runs the weightless int8 count kernel.
-        bf16_exact_weights=True,
-        binary_weights=beam.survival is None or SCREEN_BINARY_SURVIVAL,
-        window=histogram_window,
-        platform=platform,
     )  # (..., H, W), flipped like a camera image
     return image
 
@@ -139,17 +120,12 @@ class Screen(Element):
     """
 
     _data_fields = ("pixel_size", "misalignment")
-    _static_fields = ("_resolution", "_binning", "is_active", "histogram_window")
+    _static_fields = ("_resolution", "_binning", "is_active")
 
     # Defaults for non-pytree state (instances rebuilt by tree_unflatten
     # inside transformations fall back to these class attributes).
     _read_beam = None
     cached_reading = None
-    #: Per-axis ``(win_x, win_y)`` pixel window for the TPU MXU histogram
-    #: path (``None`` = the global default).  A runtime performance knob —
-    #: not a defining feature, not serialized.  Spots larger than the window
-    #: fall back to the exact scatter path.
-    histogram_window = None
 
     def __init__(
         self,
@@ -268,11 +244,9 @@ class Screen(Element):
             # x'-column for particle beams (``screen.py:133-135`` shifts
             # particles[:, :, 1]); we shift y (index 2), the physically
             # meaningful behavior, matching the ParameterBeam branch.
-            # One broadcast subtract over the whole (..., N, 7) cloud: the
-            # per-column ``.at[..., c].add`` form lowered to two
-            # column-strided dynamic-update-slices costing 118 us EACH at
-            # (8, 1e5, 7) on TPU v5 lite (profiled; ~13% of the whole
-            # flagship dispatch) vs ~30 us for the fused elementwise pass.
+            # One broadcast subtract over the whole (..., N, 7) cloud, one
+            # fused elementwise pass (a per-column ``.at[..., c].add``
+            # lowers to column-strided dynamic-update-slices instead).
             mis = self.misalignment
             zero = jnp.zeros_like(mis[..., 0])
             shift = jnp.stack(
@@ -287,37 +261,6 @@ class Screen(Element):
                 survival=incoming.survival,
             )
         return incoming
-
-    def derive_histogram_window(
-        self, read_beam, k_sigma: float = 6.0
-    ) -> Tuple[int, int]:
-        """Static ``(x_px, y_px)`` histogram window sized from a concrete
-        reference working-point beam at the screen plane (VERDICT r3
-        next #7 — replaces hand-tuned window constants).
-
-        The windowed MXU histogram's dynamic *origin* already tracks the
-        spot position, so only the spot SIZE needs a static bound:
-        ``2 * k_sigma * sigma`` per axis in effective pixels, clipped to
-        the resolution.  ``k_sigma=6`` bounds the extreme sample of 1e5
-        Gaussian particles (max |z| ~ 4.4 sigma) with ~35% margin; spots
-        that settings blow up beyond the window still fall back to the
-        exact scatter path (counted by
-        ``lynx_tpu.ops.histogram.histogram_fallback_count``).
-
-        The beam's statistics must be concrete (eager) values — sizing is
-        a build-time decision, not a traced one.
-        """
-        import numpy as np
-
-        pixel = np.asarray(self.effective_pixel_size)
-        sigma_x = float(np.max(np.asarray(read_beam.sigma_x)))
-        sigma_y = float(np.max(np.asarray(read_beam.sigma_y)))
-        width = int(np.ceil(2.0 * k_sigma * sigma_x / float(pixel[0])))
-        height = int(np.ceil(2.0 * k_sigma * sigma_y / float(pixel[1])))
-        return (
-            max(8, min(width, self.effective_resolution[0])),
-            max(8, min(height, self.effective_resolution[1])),
-        )
 
     def track(self, incoming: Beam) -> Beam:
         if not self.is_active:
@@ -372,7 +315,6 @@ class Screen(Element):
                 self._resolution,
                 self.pixel_size,
                 self._binning,
-                histogram_window=self.histogram_window,
             )
         else:
             raise TypeError(f"Read beam is of invalid type {type(read_beam)}")
@@ -397,11 +339,6 @@ class Screen(Element):
             name=self.name,
         )
         new_screen.length = jnp.broadcast_to(self.length, shape)
-        # Tuning attributes must survive broadcasting: dropping the window
-        # silently sent every BATCHED flagship screen read down the scatter
-        # fallback (the default square 512 window does not contain the ARES
-        # spot's 800 px y-span) — a 4.7x slowdown found on device.
-        new_screen.histogram_window = self.histogram_window
         return new_screen
 
     def split(self, resolution: float) -> list[Element]:

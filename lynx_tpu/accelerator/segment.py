@@ -2,7 +2,7 @@
 
 Reference behavior contract: ``lynx/accelerator/segment.py``.
 
-TPU-native tracking strategy: elements are partitioned at *trace time* into
+Tracking strategy: elements are partitioned at *trace time* into
 maximal runs of skippable (purely linear) elements; each run's maps are
 stacked and folded with balanced batched matmuls (``lynx_tpu.ops.folding``)
 and applied to the beam as one matrix, with non-skippable elements (active
@@ -35,160 +35,9 @@ from lynx_tpu.particles import Beam, ParticleBeam
 
 Array = jax.Array
 
-#: Flat batch size above which map folding switches to the batch-last
-#: (VPU-lane) layout — see ``ops/folding.py``.
+#: Flat batch size from which a run of maps is composed as a sparse table
+#: of ``(batch,)`` cells (``ops/table.py``) instead of a dense matrix fold.
 BATCH_LAST_THRESHOLD = 512
-
-#: Flat batch size above which moment sweeps go through the fused Pallas
-#: kernel (TPU backend only) — see ``ops/pallas_track.py``.
-PALLAS_SWEEP_THRESHOLD = 16384
-
-#: Routing override for the fused Pallas moment sweep: ``None`` = auto
-#: (TPU backend only), ``True``/``False`` force it on/off regardless of
-#: backend.  ``True`` + interpret-mode ``pallas_call`` lets CPU CI compile
-#: and execute the exact graph the TPU routes through ``Segment.track``
-#: (otherwise backend-keyed routing makes that graph structurally
-#: unreachable off-TPU; VERDICT r2 weak #7).
-FUSED_SWEEP_PATH = None
-
-
-def resolve_platform(beam: Beam, platform: "str | None" = None) -> str:
-    """Resolve the execution platform for kernel routing decisions.
-
-    Priority (VERDICT r3 weak #4 / next #9 — backend-keyed routing must
-    not be the silent default): an explicit ``platform`` argument wins;
-    otherwise the *committed device* of the beam's concrete arrays (so
-    ``jax.device_put(beam, cpu_dev)`` routes correctly even when another
-    backend is the process default); tracers carry no device, so inside a
-    ``jit`` trace the fallback is ``jax.default_backend()`` (which
-    matches the device the jitted computation actually lowers for unless
-    the user placed it explicitly — in that case they pass
-    ``platform=`` through ``track``/``Segment.track``)."""
-    if platform is not None:
-        return platform
-    for leaf in jax.tree_util.tree_leaves(beam):
-        if isinstance(leaf, jax.Array) and not isinstance(
-            leaf, jax.core.Tracer
-        ):
-            try:
-                devices = leaf.devices()
-            except Exception:  # pragma: no cover - deleted/donated arrays
-                continue
-            if devices:
-                return next(iter(devices)).platform
-    return jax.default_backend()
-
-
-def _fused_flush(run: list[Element], beam: Beam, platform: "str | None" = None):
-    """Try the fused Pallas build+fold+apply path; ``None`` if inapplicable."""
-    from lynx_tpu.particles import ParameterBeam
-
-    use_fused = FUSED_SWEEP_PATH
-    if use_fused is None:
-        use_fused = resolve_platform(beam, platform) == "tpu"
-    if not use_fused:
-        return None
-    if not isinstance(beam, ParameterBeam):
-        # ParticleBeam routing happens in _flush_run via
-        # _route_particle_sweep (hardware-adjudicated N threshold).
-        return None
-    from lynx_tpu.accelerator.fused import element_map_builder, plan_run
-
-    energy = jnp.asarray(beam.energy)
-    batch_shape, _ = _flat_batch_of(run, energy)
-    batch_shape = jnp.broadcast_shapes(batch_shape, beam._mu.shape[:-1])
-    flat = 1
-    for dim in batch_shape:
-        flat *= dim
-    if flat < PALLAS_SWEEP_THRESHOLD:
-        return None
-    builders = [element_map_builder(el) for el in run]
-    if any(b is None for b in builders):
-        return None
-
-    def vec(x):
-        return jnp.broadcast_to(x, batch_shape).reshape(flat)
-
-    from lynx_tpu.ops.pallas_track import fused_moment_sweep_plan
-
-    plan = plan_run(builders, energy, vec)
-    mu = jnp.broadcast_to(beam._mu, (*batch_shape, 7)).reshape(flat, 7)
-    cov = jnp.broadcast_to(beam._cov, (*batch_shape, 7, 7)).reshape(flat, 7, 7)
-    out_mu, out_cov = fused_moment_sweep_plan(plan, vec(energy), mu, cov)
-    return ParameterBeam(
-        out_mu.reshape(*batch_shape, 7),
-        out_cov.reshape(*batch_shape, 7, 7),
-        beam.energy,
-        total_charge=beam.total_charge,
-    )
-
-
-#: Per-setting particle count BELOW which the fused Pallas particle sweep
-#: beats the dense batched matmul on TPU.  On-device A/B (TPU v5 lite,
-#: ``benchmarks/particle_ab.py``, 2026-08-19, loop-carried delta-K harness
-#: — see ``lynx_tpu.profiling``): at (B=100, N=10k) pallas wins 20.7G vs
-#: 0.98G pushes/s forward (the working set stays VMEM-resident across the
-#: sweep; the dense path round-trips every intermediate through HBM) and
-#: 3.50G vs 2.09G with gradients; at (B=32, N=100k) the dense matmul wins
-#: 5.26G vs 3.50G forward, 4.78G vs 2.97G with gradients — large N
-#: amortizes the dense push.  16384 splits the measured crossover.
-PARTICLE_SWEEP_N_THRESHOLD = 16384
-
-#: Routing override for the fused Pallas particle sweep: ``None`` = auto
-#: (TPU backend, B >= 16, N < PARTICLE_SWEEP_N_THRESHOLD), ``True``/
-#: ``False`` force it on/off (CI interpret-mode coverage, A/B benches).
-PARTICLE_SWEEP_PATH = None
-
-
-def _route_particle_sweep(beam: Beam, platform: "str | None" = None) -> bool:
-    """Auto-routing decision for the fused Pallas particle sweep (the
-    hardware-adjudicated default; see ``PARTICLE_SWEEP_N_THRESHOLD``)."""
-    from lynx_tpu.particles import ParticleBeam
-
-    if not isinstance(beam, ParticleBeam) or beam.particles.ndim != 3:
-        return False
-    if PARTICLE_SWEEP_PATH is not None:
-        return PARTICLE_SWEEP_PATH
-    return (
-        resolve_platform(beam, platform) == "tpu"
-        and beam.particles.shape[-2] < PARTICLE_SWEEP_N_THRESHOLD
-    )
-
-
-def _fused_particle_flush(run: list[Element], beam: "ParticleBeam"):
-    """Fused per-setting particle sweep for (B, N, 7) beams; ``None`` if
-    inapplicable (see ``ops/pallas_track.fused_particle_sweep``)."""
-    from lynx_tpu.accelerator.fused import element_map_builder
-    from lynx_tpu.ops.pallas_track import fused_particle_sweep
-
-    if beam.particles.ndim != 3:
-        return None
-    B = beam.particles.shape[0]
-    if B < 16:  # per-setting grid steps need enough settings to pay off
-        return None
-    energy = jnp.asarray(beam.energy)
-    batch_shape, _ = _flat_batch_of(run, energy)
-    batch_shape = jnp.broadcast_shapes(batch_shape, (B,))
-    if batch_shape != (B,):
-        return None
-    builders = [element_map_builder(el) for el in run]
-    if any(b is None for b in builders):
-        return None
-
-    def vec(x):
-        return jnp.broadcast_to(x, (B,))
-
-    element_params = [[vec(p) for p in params] for params, _ in builders]
-    build_fns = [fn for _, fn in builders]
-    out_particles = fused_particle_sweep(
-        build_fns, element_params, vec(energy), beam.particles
-    )
-    return ParticleBeam(
-        out_particles,
-        beam.energy,
-        particle_charges=beam.particle_charges,
-        survival=beam.survival,
-    )
 
 
 def _flat_batch_of(elements: list[Element], energy: Array) -> tuple:
@@ -470,28 +319,19 @@ class Segment(Element):
             return stacked_transfer_map(self.elements, energy)
         return None
 
-    def track(self, incoming: Beam, platform: "str | None" = None) -> Beam:
+    def track(self, incoming: Beam) -> Beam:
         """Track a beam through the segment.
 
         Consecutive skippable elements are folded into one matrix; the
         non-skippable elements (which may have side outputs or nonlinear
         physics) are tracked individually (reference ``segment.py:340-356``).
-
-        :param platform: kernel-routing override (``"tpu"``/``"cpu"``);
-            default resolves from the beam arrays' committed device (see
-            :func:`resolve_platform`).
         """
         if incoming is Beam.empty:
             return incoming
-        # Resolve routing ONCE at entry, from concrete inputs when
-        # available — inner flushes see post-tracking tracers.
-        platform = resolve_platform(incoming, platform)
         if self.is_skippable:
-            # Route through the flush so the fused Pallas / table fast paths
-            # apply to fully-linear segments too.
-            return self._flush_run(
-                self.flattened().elements, incoming, platform
-            )
+            # Route through the flush so the table fast path applies to
+            # fully-linear segments too.
+            return self._flush_run(self.flattened().elements, incoming)
 
         beam = incoming
         run: list[Element] = []
@@ -499,25 +339,16 @@ class Segment(Element):
             if element.is_skippable:
                 run.append(element)
                 continue
-            beam = self._flush_run(run, beam, platform)
+            beam = self._flush_run(run, beam)
             run = []
             beam = element.track(beam)
-        beam = self._flush_run(run, beam, platform)
+        beam = self._flush_run(run, beam)
         return beam
 
     @staticmethod
-    def _flush_run(
-        run: list[Element], beam: Beam, platform: "str | None" = None
-    ) -> Beam:
+    def _flush_run(run: list[Element], beam: Beam) -> Beam:
         if not run or beam is Beam.empty:
             return beam
-        fused = _fused_flush(run, beam, platform)
-        if fused is not None:
-            return fused
-        if _route_particle_sweep(beam, platform):
-            fused = _fused_particle_flush(run, beam)
-            if fused is not None:
-                return fused
         energy = jnp.asarray(beam.energy)
         _, flat_batch = _flat_batch_of(run, energy)
         if flat_batch >= BATCH_LAST_THRESHOLD:

@@ -3,7 +3,7 @@
 Behavioral parity with reference ``lynx/converters/ocelot.py``, but
 *duck-typed by class name* instead of ``isinstance`` against an installed
 Ocelot — so both real Ocelot cells and shim-built lattice modules
-(:mod:`lynx_tpu.converters.ocelot_shim`) convert on TPU machines where
+(:mod:`lynx_tpu.converters.ocelot_shim`) convert on machines where
 Ocelot cannot be installed.
 """
 

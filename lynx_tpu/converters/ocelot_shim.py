@@ -1,6 +1,6 @@
 """Minimal duck-typed stand-ins for Ocelot element classes.
 
-Real Ocelot is not installable in TPU environments; the converter
+Real Ocelot is not installed in every environment; the converter
 (:mod:`lynx_tpu.converters.ocelot`) matches elements *by class name*, so any
 object exposing Ocelot's attribute names works.  These shims provide just the
 attributes the converter reads (``l``, ``id``, per-type strengths), letting

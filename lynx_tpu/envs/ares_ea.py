@@ -43,11 +43,10 @@ class EnvParams(NamedTuple):
 
     The working-point beam energy deliberately lives on the environment
     (``AresEATransverseTuning(energy=...)``), NOT here: per-instance
-    energies would batch the energy through every transfer-map builder and
-    disable the fused sweep's static-element hoisting
-    (``lynx_tpu.accelerator.fused.plan_run``) — and the EA tuning task runs
-    at a fixed working point anyway (magnet strengths are geometric ``k1``,
-    so the maps' energy dependence is only in the longitudinal cells).
+    energies would batch the energy through every transfer-map builder, and
+    the EA tuning task runs at a fixed working point anyway (magnet
+    strengths are geometric ``k1``, so the maps' energy dependence is only
+    in the longitudinal cells).
     """
 
     target: Array  # (4,) target (mu_x, sigma_x, mu_y, sigma_y) on the screen
@@ -187,7 +186,7 @@ class AresEATransverseTuning:
 
         Uses natively batched tracking — unlike ``vmap`` over
         :meth:`beam_parameters` (whose per-instance shapes hide the batch),
-        this engages the large-batch table/Pallas fast paths.
+        this engages the large-batch sparse-table path.
         """
         tuned = self._batched_tuned_segment(magnets)
 
@@ -203,8 +202,7 @@ class AresEATransverseTuning:
         )
         # Re-wrap with the UNBATCHED working-point energy:
         # ``from_parameters`` broadcasts every argument (including energy)
-        # to the common batch shape, which would defeat the fused sweep's
-        # static-element hoisting (see the ``EnvParams`` docstring).
+        # to the common batch shape (see the ``EnvParams`` docstring).
         beam = lt.ParameterBeam(
             beam._mu, beam._cov, energy=jnp.full((1,), self.energy)
         )
@@ -219,7 +217,6 @@ class AresEATransverseTuning:
         magnets: Array,
         beam: "lt.ParticleBeam",
         method: str = "auto",
-        platform: "str | None" = None,
     ) -> Array:
         """Full-fidelity observation: track a macro-particle beam through the
         tuned EA and return the ``(B, 4)`` sample-moment beam parameters
@@ -241,11 +238,12 @@ class AresEATransverseTuning:
               linear lattice this is algebraically EXACT — identical
               ``mu``/``sigma`` observations to pushing all N particles
               (``mu' = R mu``, ``Sigma' = R Sigma R^T``; the moments are a
-              sufficient statistic) — at ~N-times less work per setting.
-              This is what makes the >= 1e6 env-steps/s/chip north star
-              reachable: the dense per-setting push re-reads the whole
-              particle array from HBM per setting and is bandwidth-bound at
-              ~1e5 steps/s (round-3 roofline, ``docs/performance.md``).
+              sufficient statistic) — at ~N-times less work per setting
+              (the dense per-setting push re-reads the whole particle array
+              from device memory per setting).
+            * ``"kernel"``: the settings-amortized moment sweep over the
+              shared cloud (``ops/sweep.sweep_particle_moments``), which
+              keeps per-particle fidelity through interleaved apertures.
             * ``"particles"``: push every particle for every setting (the
               fidelity path required by per-particle observables —
               apertures, particle-histogram screens, nonlinear elements).
@@ -258,15 +256,11 @@ class AresEATransverseTuning:
                 "moments" if moment_sufficient(tuned, beam) else "particles"
             )
         if method == "moments":
-            outgoing, _ = track(
-                tuned, beam.as_parameter_beam(), platform=platform
-            )
+            outgoing, _ = track(tuned, beam.as_parameter_beam())
         elif method == "kernel":
-            return self._kernel_particle_beam_parameters(
-                magnets, tuned, beam, platform
-            )
+            return self._kernel_particle_beam_parameters(magnets, tuned, beam)
         elif method == "particles":
-            outgoing, _ = track(tuned, beam, platform=platform)
+            outgoing, _ = track(tuned, beam)
         else:
             raise ValueError(
                 f"unknown method {method!r}"
@@ -282,17 +276,14 @@ class AresEATransverseTuning:
         magnets: Array,
         tuned: "lt.Segment",
         beam: "lt.ParticleBeam",
-        platform: "str | None" = None,
     ) -> Array:
         """Particle-fidelity observation through the settings-amortized
-        VMEM-resident moment sweep (``ops/pallas_track.
-        fused_particle_moment_sweep``): the shared cloud is loaded on-chip
-        once and the B settings loop over it — per-setting HBM traffic
-        drops to the composed map cells and the 36 moment sums.  Supports
-        interleaved active apertures (per-particle survival that no moment
-        algebra can express)."""
+        moment sweep (``ops/sweep.sweep_particle_moments``): the shared
+        cloud is walked once per setting and only the 36 moment sums per
+        setting leave the walk.  Supports interleaved active apertures
+        (per-particle survival that no moment algebra can express)."""
         from lynx_tpu.accelerator.fused import particle_moment_plan
-        from lynx_tpu.ops.pallas_track import sweep_particle_moments
+        from lynx_tpu.ops.sweep import sweep_particle_moments
 
         B = magnets.shape[0]
         plan = particle_moment_plan(
@@ -320,7 +311,7 @@ class AresEATransverseTuning:
         )
         entries, scalars = plan
         mu, cov, _ = sweep_particle_moments(
-            entries, scalars, particles, weights, platform, batch_size=B
+            entries, scalars, particles, weights, batch_size=B
         )
         return jnp.stack(
             [

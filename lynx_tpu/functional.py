@@ -19,30 +19,18 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import jax
-import jax.numpy as jnp
 
 from lynx_tpu.accelerator.aperture import Aperture, aperture_survival_mask
 from lynx_tpu.accelerator.bpm import BPM, bpm_reading
 from lynx_tpu.accelerator.cavity import Cavity
-from lynx_tpu.accelerator.element import (
-    Element,
-    apply_table,
-    apply_transfer_map,
-)
+from lynx_tpu.accelerator.element import Element
 from lynx_tpu.accelerator.marker import Marker
 from lynx_tpu.accelerator.screen import (
     Screen,
     screen_reading_parameter,
     screen_reading_particle,
 )
-from lynx_tpu.accelerator.segment import (
-    BATCH_LAST_THRESHOLD,
-    Segment,
-    _flat_batch_of,
-    _fused_flush,
-    composed_table,
-    stacked_transfer_map,
-)
+from lynx_tpu.accelerator.segment import Segment
 from lynx_tpu.particles import Beam, ParameterBeam, ParticleBeam
 
 Array = jax.Array
@@ -50,7 +38,7 @@ Diagnostics = Dict[str, Any]
 
 
 def track(
-    segment: Segment, incoming: Beam, platform: Optional[str] = None
+    segment: Segment, incoming: Beam
 ) -> Tuple[Optional[Beam], Diagnostics]:
     """Track ``incoming`` through ``segment``; return (outgoing, diagnostics).
 
@@ -59,30 +47,13 @@ def track(
     * ``diagnostics`` maps ``"<element name>"`` to the element's reading:
       BPM -> ``(2, ...)`` position reading, Screen -> ``(..., H, W)`` image,
       Aperture -> ``(..., N)`` survival mask after the aperture.
-    * ``platform`` overrides kernel routing (``"tpu"``/``"cpu"``); the
-      default resolves from the beam arrays' committed device
-      (``lynx_tpu.accelerator.segment.resolve_platform``).
 
     Pure: no element state is touched; safe under jit/grad/vmap/shard_map.
     """
-    from lynx_tpu.accelerator.segment import resolve_platform
-
     diagnostics: Diagnostics = {}
     beam = incoming
     run: list[Element] = []
-    platform = resolve_platform(incoming, platform)
-
-    def flush(run: list[Element], beam: Beam) -> Beam:
-        if not run:
-            return beam
-        fused = _fused_flush(run, beam, platform)
-        if fused is not None:
-            return fused
-        energy = jnp.asarray(beam.energy)
-        _, flat_batch = _flat_batch_of(run, energy)
-        if flat_batch >= BATCH_LAST_THRESHOLD:
-            return apply_table(composed_table(run, energy), beam)
-        return apply_transfer_map(stacked_transfer_map(run, energy), beam)
+    flush = Segment._flush_run
 
     for element in segment.flattened().elements:
         if element.is_skippable:
@@ -104,8 +75,6 @@ def track(
                     element.resolution,
                     element.pixel_size,
                     element.binning,
-                    histogram_window=element.histogram_window,
-                    platform=platform,
                 )
             elif isinstance(read_beam, ParameterBeam):
                 diagnostics[element.name] = screen_reading_parameter(
@@ -135,7 +104,7 @@ def track(
         elif isinstance(element, Marker):
             pass
         elif isinstance(element, Segment):
-            beam, sub_diagnostics = track(element, beam, platform)
+            beam, sub_diagnostics = track(element, beam)
             diagnostics.update(sub_diagnostics)
             if beam is None:
                 return None, diagnostics

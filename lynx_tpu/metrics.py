@@ -1,7 +1,7 @@
 """Per-step beam-statistics metrics emission (SURVEY.md §5 metrics row).
 
 The reference's only observability is matplotlib plots; this module adds
-the structured-metrics channel the TPU build needs: scalar beam
+the structured-metrics channel this build needs: scalar beam
 statistics emitted per training/env step through the ``lynx_tpu``
 logger, including from *inside* jitted code via
 ``jax.debug.callback`` (the host callback runs asynchronously — call

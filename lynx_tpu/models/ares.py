@@ -21,69 +21,10 @@ def ares_lattice() -> Segment:
     return Segment.from_lattice_json(str(_RESOURCES / "ares_lattice.json"))
 
 
-#: Derived-window memo: the lattice and nominal beam are static per
-#: process, so the eager derivation track runs once.
-_EA_WINDOW_CACHE: dict = {}
-
-
-def _derived_ea_window(segment: Segment, k_sigma: float):
-    """Histogram window for AREABSCR1 sized from the flagship working
-    point (the reference speed-contract beam, ``tests/test_speed.py``:
-    sigma_x = sigma_y = 1.75e-4 m, E = 1.073e8 eV) tracked to the screen
-    plane — replaces the previous hand-tuned (256, 1024) constant
-    (VERDICT r3 next #7).  The dynamic window origin tracks spot
-    position; settings that blow the spot up beyond this size take the
-    exact scatter fallback, now counted by
-    ``lynx_tpu.ops.histogram.histogram_fallback_count``."""
-    if k_sigma in _EA_WINDOW_CACHE:
-        return _EA_WINDOW_CACHE[k_sigma]
-    import jax.numpy as jnp
-
-    from lynx_tpu.functional import track
-    from lynx_tpu.particles import ParameterBeam
-
-    flagship_k1 = {"AREAMQZM1": 4.2, "AREAMQZM2": -4.2, "AREAMQZM3": 2.1}
-    probe_elements = []
-    for element in segment.elements:
-        name = getattr(element, "name", None)
-        if name == "AREABSCR1":
-            element = element.replace(is_active=False)
-        elif name in flagship_k1:
-            element = element.replace(k1=jnp.array([flagship_k1[name]]))
-        probe_elements.append(element)
-    probe = Segment(probe_elements)
-    nominal = ParameterBeam.from_parameters(
-        sigma_x=jnp.array([1.75e-4]),
-        sigma_y=jnp.array([1.75e-4]),
-        sigma_xp=jnp.array([2e-5]),
-        sigma_yp=jnp.array([2e-5]),
-        sigma_s=jnp.array([8e-6]),
-        sigma_p=jnp.array([2e-3]),
-        energy=jnp.array([1.073e8]),
-    )
-    at_screen, _ = track(probe, nominal)
-    window = segment.AREABSCR1.derive_histogram_window(
-        at_screen, k_sigma=k_sigma
-    )
-    _EA_WINDOW_CACHE[k_sigma] = window
-    return window
-
-
-def ares_ea_segment(histogram_window="auto") -> Segment:
+def ares_ea_segment() -> Segment:
     """The ARES Experimental Area subcell (AREASOLA1 -> AREABSCR1).
 
     The transverse-tuning benchmark lattice: 3 quadrupoles (AREAMQZM1/2/3),
     2 correctors (AREAMCVM1, AREAMCHM1) and a diagnostic screen (AREABSCR1).
-
-    :param histogram_window: TPU MXU-histogram window for the screen —
-        ``"auto"`` (default) derives it from the flagship working-point
-        beam's moments at the screen plane (see
-        :meth:`Screen.derive_histogram_window`); pass an ``(x, y)`` pixel
-        tuple to override or ``None`` to disable windowing (always use
-        the scatter path off-TPU sizes).
     """
-    segment = ares_lattice().subcell("AREASOLA1", "AREABSCR1")
-    if histogram_window == "auto":
-        histogram_window = _derived_ea_window(segment, k_sigma=5.0)
-    segment.AREABSCR1.histogram_window = histogram_window
-    return segment
+    return ares_lattice().subcell("AREASOLA1", "AREABSCR1")

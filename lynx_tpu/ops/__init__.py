@@ -6,8 +6,4 @@ from lynx_tpu.ops.rmatrix import (  # noqa: F401
     rotation_matrix,
 )
 from lynx_tpu.ops.folding import fold_transfer_maps  # noqa: F401
-from lynx_tpu.ops.histogram import (  # noqa: F401
-    screen_histogram_2d,
-    weighted_histogram_2d,
-    windowed_matmul_histogram_2d,
-)
+from lynx_tpu.ops.histogram import weighted_histogram_2d  # noqa: F401

@@ -2,10 +2,10 @@
 
 The hot loop of lattice tracking is composing a run of ``(..., 7, 7)``
 transfer maps into a single matrix (reference ``lynx/accelerator/
-segment.py:329-338`` does this with a sequential Python loop).  On TPU we
+segment.py:329-338`` does this with a sequential Python loop).  Here we
 fold the stacked maps with a balanced binary tree: ``ceil(log2(L))`` *batched*
 matmuls instead of ``L`` sequential ones, which both shrinks the XLA graph
-for long lattices (1000+ elements) and exposes batch parallelism to the MXU.
+for long lattices (1000+ elements) and exposes batch parallelism.
 """
 
 from __future__ import annotations
@@ -40,11 +40,9 @@ def fold_transfer_maps(maps: Array) -> Array:
 def fold_transfer_maps_batch_last(maps: list[Array]) -> Array:
     """Compose a list of maps held in batch-last layout ``(7, 7, ...)``.
 
-    Large-batch fast path: with the batch dimension on the trailing (lane)
-    axes, a 7x7 composition lowers to 49x7 vectorized multiply-adds on the
-    VPU instead of tiny batched MXU matmuls — measured ~8x faster per compose
-    and the difference compounds over a lattice (the ARES settings sweep at
-    batch 100k spends 328 of 360 ms in batch-first folding).
+    Large-batch fast path: with the batch dimension on the trailing axes, a
+    7x7 composition lowers to 49x7 vectorized multiply-adds that XLA fuses
+    instead of many tiny batched matmuls.
 
     The maps stay a Python list (tree-folded pairwise) rather than a stacked
     ``(L, 7, 7, ...)`` array: XLA assigns stacked small-dim arrays a tiled

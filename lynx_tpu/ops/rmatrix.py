@@ -38,17 +38,14 @@ def build_rmatrix(
 ) -> Array:
     """Assemble a batched 7x7 matrix: identity plus the given entries.
 
-    ``batch_last=True`` produces ``(7, 7, *batch_shape)`` — the VPU-lane
+    ``batch_last=True`` produces ``(7, 7, *batch_shape)`` — the batch-last
     layout used by the large-batch fast path (entry writes then touch
-    contiguous lanes instead of a stride-49 scatter).
+    contiguous memory instead of a stride-49 scatter).
     """
-    # Stack-based assembly in BOTH layouts (no scatter): required for the
-    # Pallas TPU lowering in batch-last, and in batch-first the former
-    # per-entry ``.at[..., i, j].set`` chain lowered to one
-    # dynamic-update-slice op per matrix cell — ~50 of them across an EA
-    # map build at ~3.7 us each (185 us of a 622 us dispatch at B=32,
-    # profiled on TPU v5 lite).  Two nested stacks are a handful of
-    # fusable concats instead.
+    # Stack-based assembly in BOTH layouts (no scatter): a per-entry
+    # ``.at[..., i, j].set`` chain lowers to one dynamic-update-slice op
+    # per matrix cell — ~50 of them across an EA map build.  Two nested
+    # stacks are a handful of fusable concats instead.
     col_axis, row_axis = (0, 0) if batch_last else (-1, -2)
     zero = jnp.zeros(batch_shape, dtype=dtype)
     one = jnp.ones(batch_shape, dtype=dtype)
@@ -84,8 +81,8 @@ def _flat_batch(*shapes) -> int:
 
 def compose_batch_last(second: Array, first: Array) -> Array:
     """``second @ first`` for ``(7, 7, ...)`` maps via explicitly unrolled
-    multiply-adds — pure elementwise VPU work, and (unlike dot_general with a
-    trailing batch dim) supported by the Pallas TPU lowering."""
+    multiply-adds — pure elementwise work that XLA fuses, instead of a
+    dot_general with a trailing batch dim."""
     rows = []
     for i in range(7):
         row = []
@@ -132,8 +129,8 @@ def sandwich(
     With ``batch_last=True`` all operands are already ``(7, 7, ...)`` and the
     product is computed (and returned) in that layout directly.  Otherwise
     operands are ``(..., 7, 7)``; large batches are routed through the
-    batch-last layout internally (batched tiny matmuls are pathological on
-    the MXU — see ``folding.py``).
+    batch-last layout internally (elementwise multiply-adds instead of
+    many tiny batched matmuls — see ``folding.py``).
     """
     precision = jax.lax.Precision.HIGHEST
     if batch_last:
@@ -183,8 +180,7 @@ def _cos_sinc(k2: Array, length: Array) -> Tuple[Array, Array]:
     arg = abs_k * length
     focusing = k2 >= 0
 
-    # Hyperbolic branch without cosh/sinh/expm1 (none lower in Mosaic):
-    # exp-based identities for large args, Taylor series where the exp form
+    # Hyperbolic branch without cosh/sinh/expm1: exp-based identities for large args, Taylor series where the exp form
     # would cancel catastrophically (|arg| < 0.1; series error < 3e-13 rel).
     exp_pos = jnp.exp(arg)
     exp_neg = jnp.exp(-arg)

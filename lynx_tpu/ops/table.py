@@ -5,13 +5,12 @@ whose cells are either ``(batch,)`` arrays or literal Python floats (0.0/1.0
 for structural zeros / identity).  Composing tables skips literal zeros at
 *trace time*, so a chain of mostly-sparse accelerator maps (drifts have 10
 non-trivial entries of 49) costs a fraction of the dense 343 multiply-adds —
-and no ``(7, 7, B)`` array is ever materialized, which both avoids XLA's
-pathological tiled layouts for small leading dims and sidesteps Mosaic's
-(Pallas TPU) limitations on stacking/contracting small dimensions.
+and no ``(7, 7, B)`` array is ever materialized: every cell stays a
+``(batch,)`` vector that XLA fuses into elementwise multiply-adds.
 
-This is the shared compute core of the batch-last XLA fast path and the
-fused Pallas sweep kernel (``ops/pallas_track.py``): one numerics codepath,
-two execution strategies.
+This is the compute core of the large-batch flush path
+(``Segment._flush_run``) and of the particle moment sweep plans
+(``accelerator/fused.py``, ``ops/sweep.py``).
 """
 
 from __future__ import annotations
@@ -149,9 +148,26 @@ def broadcast_cell(cell: Cell, batch_shape, dtype) -> Array:
     return jnp.broadcast_to(jnp.asarray(cell, dtype=dtype), batch_shape)
 
 
+def split_table(total: Table):
+    """Split a table into ``(layout, cells)``: literals stay in the layout,
+    array cells are replaced by their index into the cell list."""
+    layout = []
+    cells = []
+    for i in range(7):
+        row = []
+        for j in range(7):
+            cell = total[i][j]
+            if _is_literal(cell):
+                row.append(float(cell))
+            else:
+                row.append(len(cells))
+                cells.append(cell)
+        layout.append(row)
+    return layout, cells
+
+
 def table_to_batch_last(table: Table, batch_shape, dtype) -> Array:
-    """Materialize a table as a stacked ``(7, 7, *batch)`` array (XLA only —
-    Mosaic cannot lower the 7-row stack)."""
+    """Materialize a table as a stacked ``(7, 7, *batch)`` array."""
     return jnp.stack(
         [
             jnp.stack(

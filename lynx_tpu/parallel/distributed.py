@@ -1,17 +1,17 @@
 """Multi-host (multi-process) initialization for lynx-tpu.
 
 The reference is strictly single-process — it has no distributed backend at
-all (SURVEY.md §2.4: no NCCL/MPI/Gloo/UCX anywhere).  On TPU pods the idiom
-is ``jax.distributed.initialize`` + one global :class:`jax.sharding.Mesh`
-spanning every chip of every host; XLA then routes intra-slice collectives
-over ICI and cross-slice traffic over DCN without any hand-written
-communication code.
+all (SURVEY.md §2.4: no NCCL/MPI/Gloo/UCX anywhere).  On a multi-host GPU
+cluster the idiom is ``jax.distributed.initialize`` + one global
+:class:`jax.sharding.Mesh` spanning every card of every host; XLA then
+hands the collectives to NCCL (NVLink within a host, the network across
+hosts) without any hand-written communication code.
 
-Typical launch on an N-host pod slice (same program on every host)::
+Typical launch on N hosts (same program on every host)::
 
     import lynx_tpu
 
-    lynx_tpu.parallel.initialize()            # auto-detects TPU pod topology
+    lynx_tpu.parallel.initialize()            # auto-detects SLURM / Open MPI
     mesh = lynx_tpu.parallel.global_mesh()    # (batch, particles) global mesh
     beam = lynx_tpu.parallel.host_local_beam_to_global(local_beam, mesh)
     ...
@@ -20,8 +20,8 @@ On CPU (tests, local smoke runs) pass the coordinator explicitly::
 
     lynx_tpu.parallel.initialize("host0:1234", num_processes=2, process_id=i)
 
-See ``docs/distributed.md`` for the full launch recipe (GCE TPU pods, SLURM,
-manual multi-process CPU).
+See ``docs/distributed.md`` for the full launch recipe (SLURM, manual
+multi-process launches).
 """
 
 from __future__ import annotations
@@ -58,8 +58,8 @@ def initialize(
     """Initialize the JAX distributed runtime for multi-host execution.
 
     A thin, idempotent wrapper over ``jax.distributed.initialize``.  With no
-    arguments, JAX auto-detects the cluster on TPU pods (GCE metadata), SLURM
-    and Open MPI environments.  For manual launches (e.g. the multi-process
+    arguments, JAX auto-detects the cluster in SLURM and Open MPI
+    environments.  For manual launches (e.g. the multi-process
     CPU tests) pass ``coordinator_address``/``num_processes``/``process_id``
     explicitly.
 
@@ -99,9 +99,9 @@ def global_mesh(
     processes.
 
     By default, the ``batch`` axis spans processes (each host keeps its own
-    slice of the settings/env batch — DCN traffic only for the gradient
+    slice of the settings/env batch — network traffic only for the gradient
     all-reduce) and the ``particles`` axis spans the devices within a
-    process (particle-moment ``psum`` rides ICI).  Pass explicit sizes to
+    process (particle-moment ``psum`` stays on the host's NVLink).  Pass explicit sizes to
     override.
     """
     from lynx_tpu.parallel.sharding import BATCH_AXIS, PARTICLE_AXIS

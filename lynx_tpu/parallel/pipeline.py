@@ -1,11 +1,11 @@
-"""Pipeline parallelism over lattice stages (GPipe-style, TPU-native).
+"""Pipeline parallelism over lattice stages (GPipe-style).
 
 The reference has no pipeline parallelism (SURVEY.md §2.4 marks it absent;
-the TPU-build equivalent is "segment-stage pipelining across devices").
+the equivalent here is "segment-stage pipelining across devices").
 Here a lattice is split into contiguous stages placed one-per-device along a
 ``"stage"`` mesh axis, and microbatches of beams stream through the stages:
 device ``s`` tracks microbatch ``t - s`` at step ``t`` while handing its
-previous result to device ``s + 1`` over ICI via ``lax.ppermute``.  After
+previous result to device ``s + 1`` via ``lax.ppermute``.  After
 ``S - 1 + M`` steps every microbatch has crossed every stage — the classic
 GPipe schedule with bubble fraction ``(S - 1) / (S - 1 + M)``.
 

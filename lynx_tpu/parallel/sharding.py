@@ -1,7 +1,7 @@
 """Multi-chip sharding for lynx-tpu.
 
 The reference is strictly single-process: its only scale-out axis is the
-in-process batch dimension (SURVEY.md §2.4).  On TPU we map that design to a
+in-process batch dimension (SURVEY.md §2.4).  Here we map that design to a
 device mesh with two named axes:
 
 * ``"batch"``     — vectorized lattice settings / RL environment instances
@@ -12,7 +12,7 @@ device mesh with two named axes:
 
 Everything tracks through ``jit`` with input ``NamedSharding``s; XLA inserts
 the collectives (``psum`` over the particle axis for beam moments/histograms,
-gradient ``psum`` over batch) and routes them over ICI.  No hand-written
+gradient ``psum`` over batch) and hands them to NCCL.  No hand-written
 NCCL/MPI analog is needed — by construction there is nothing like the
 reference to port here.
 """

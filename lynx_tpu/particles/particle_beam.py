@@ -3,7 +3,7 @@
 ``ParticleBeam`` carries ``(..., N, 7)`` particle vectors. Propagation through
 a linear map R is ``P' = P @ R^T`` — the dominant FLOPs of tracking.
 
-TPU-native redesign vs the reference (``lynx/particles/particle_beam.py``):
+JAX-native redesign vs the reference (``lynx/particles/particle_beam.py``):
 
 * **Survival masks instead of dynamic culling.** The reference's ``Aperture``
   drops lost particles with boolean indexing, changing ``N`` at runtime —
@@ -182,7 +182,12 @@ class ParticleBeam(Beam):
             cov + eps * jnp.eye(6, dtype=dtype)
         )
         chol = jnp.nan_to_num(chol, nan=0.0)  # degenerate dims (zero variance)
-        phase_space = mean[..., None, :] + jnp.einsum("...ij,...nj->...ni", chol, z)
+        phase_space = mean[..., None, :] + jnp.einsum(
+            "...ij,...nj->...ni",
+            chol,
+            z,
+            precision=jax.lax.Precision.HIGHEST,
+        )
 
         particles = jnp.concatenate(
             [phase_space, jnp.ones((*shape, num_particles, 1), dtype=dtype)], axis=-1
@@ -674,8 +679,9 @@ class ParticleBeam(Beam):
             mu = weighted.sum(axis=-2) / total[..., None]
         centered = particles - mu[..., None, :]
         denom = jnp.maximum(total - 1.0, 1.0)
-        # HIGHEST: TPU einsum defaults to bf16 operands — sample second
-        # moments would silently lose ~8 mantissa bits.
+        # HIGHEST: at default precision the GPU may contract f32 in TF32
+        # (10 mantissa bits) — sample second moments would silently lose
+        # ~13 bits.
         if weights is None:
             cov = jnp.einsum(
                 "...ni,...nj->...ij",

@@ -16,8 +16,8 @@ import jax
 
 
 # Created lazily: a module-level PRNGKey would initialize the device backend
-# at import time, making ``import lynx_tpu`` fail whenever no accelerator is
-# reachable (e.g. a remote-attached TPU that is temporarily unavailable).
+# at import time, making ``import lynx_tpu`` choose (and lock) the device
+# backend before the caller could configure it.
 _default_key: Optional[jax.Array] = None
 
 

@@ -2,9 +2,9 @@
 
 The reference's flagship workload is gradient-based lattice tuning driven by
 a Python loop — one optimizer step per host->device dispatch (reference
-``docs/examples/gradientbased.ipynb``).  On TPU (especially remotely-attached
-chips with a ~1 ms per-call dispatch floor) that loop shape leaves most of
-the chip idle.  :func:`make_tuner` compiles the WHOLE loop: ``steps``
+``docs/examples/gradientbased.ipynb``).  On an accelerator, whose per-call
+dispatch cost exceeds a small step's compute, that loop shape leaves most
+of the device idle.  :func:`make_tuner` compiles the WHOLE loop: ``steps``
 value-and-grad + optimizer updates run as a single ``lax.scan`` under one
 ``jit``, so a full tuning run is one dispatch and the loss history comes
 back as one array.

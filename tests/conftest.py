@@ -1,10 +1,9 @@
 """Test configuration.
 
-Forces the CPU backend with 8 virtual devices (the TPU-emulation fake backend
-for multi-chip sharding tests) and enables float64 for bit-parity physics
-tests.  NOTE: the ``JAX_PLATFORMS`` environment variable alone is NOT enough
-in TPU-attached environments — the platform must be switched via
-``jax.config`` before first use.
+Forces the CPU backend with 8 virtual devices (the fake backend for
+multi-device sharding tests) and enables float64 for bit-parity physics
+tests.  The platform is switched via ``jax.config`` before first use, so
+the tests run on the CPU even on a machine with a GPU.
 """
 
 import os

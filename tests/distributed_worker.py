@@ -8,7 +8,7 @@ tuned ``k1`` (both replicated) are written to a JSON file per process so
 the parent test can check cross-process agreement and parity with a
 single-process run.
 
-This is the CI stand-in for a real multi-host TPU pod launch
+This is the CI stand-in for a real multi-host launch
 (SURVEY.md §2.4 communication-backend row; see docs/distributed.md).
 """
 

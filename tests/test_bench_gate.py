@@ -1,144 +1,62 @@
-"""Perf regression gate tests (VERDICT r1 item 7).
-
-``bench.py --check`` compares the fresh result against the stored
-``.bench_baseline.json`` and exits non-zero on a >20% throughput drop.
-The comparison logic is pure — these tests demonstrate the gate trips on
-an induced slowdown and stays quiet within tolerance.
-"""
+"""Tests of ``bench.py``'s flow: per-metric subprocesses, run one after
+another; a crashed metric records ``null`` without discarding the others;
+the JSON line names the device; a metric that finds no GPU fails."""
 
 import importlib.util
+import json
+import os
+import subprocess
 import sys
 from pathlib import Path
+
 import pytest
 
-pytestmark = pytest.mark.slow
-
-spec = importlib.util.spec_from_file_location(
-    "bench", Path(__file__).parent.parent / "bench.py"
-)
+BENCH = Path(__file__).parent.parent / "bench.py"
+spec = importlib.util.spec_from_file_location("bench", BENCH)
 bench = importlib.util.module_from_spec(spec)
 sys.modules["bench"] = bench
 spec.loader.exec_module(bench)
 
-
-BASE = {
-    "value": 1000.0,
-    "serial_tracks_per_s": 400.0,
-    "sweep_env_steps_per_s": 5e7,
-}
+GPU = {"platform": "gpu", "device_kind": "NVIDIA H100 80GB HBM3", "count": 1}
 
 
-def test_gate_trips_on_induced_slowdown():
-    slow = dict(BASE, value=700.0)  # 30% drop
-    failures = bench.check_regression(slow, BASE)
-    assert len(failures) == 1
-    assert "value" in failures[0]
-
-
-def test_gate_quiet_within_tolerance():
-    ok = dict(BASE, value=850.0, sweep_env_steps_per_s=4.5e7)  # <=20% drops
-    assert bench.check_regression(ok, BASE) == []
-
-
-def test_gate_catches_sweep_regression_only():
-    slow = dict(BASE, sweep_env_steps_per_s=1e7)
-    failures = bench.check_regression(slow, BASE)
-    assert len(failures) == 1
-    assert "sweep_env_steps_per_s" in failures[0]
-
-
-def test_gate_ignores_missing_keys():
-    assert bench.check_regression({"value": 1.0}, {}) == []
-
-
-def test_backend_probe_falls_back_to_cpu(monkeypatch):
-    """When the accelerator probe times out on every retry, the bench must
-    label the run 'cpu_fallback' instead of recording nothing."""
-    import subprocess
-
-    def timeout_run(*args, **kwargs):
-        raise subprocess.TimeoutExpired(cmd="probe", timeout=1)
-
-    monkeypatch.setattr(bench.subprocess, "run", timeout_run)
-    monkeypatch.setattr(bench.time, "sleep", lambda s: None)
-    assert bench._require_backend(timeout_s=1, retries=2) == "cpu_fallback"
-
-
-def test_backend_probe_reports_backend(monkeypatch):
-    class Probe:
-        stdout = b"tpu\n"
-
-    monkeypatch.setattr(bench.subprocess, "run", lambda *a, **k: Probe())
-    assert bench._require_backend(timeout_s=1, retries=0) == "tpu"
-
-
-def test_bench_main_end_to_end_smoke(monkeypatch, capsys, tmp_path):
-    """The full bench flow (probe -> flagship serial+batched -> sweep ->
-    JSON line) must run end to end; shrunk sizes, forced-CPU backend.
-    Protects the round-end driver run from import/flow regressions."""
-    import json
-
-    monkeypatch.setattr(bench, "FLAGSHIP_PARTICLES", 500)
-    monkeypatch.setattr(bench, "SWEEP_BATCH", 64)
-    monkeypatch.setattr(bench, "PARTICLE_ENV_BATCH", 2)
-    monkeypatch.setattr(bench, "PARTICLE_KERNEL_BATCH", 2)
-    monkeypatch.setattr(bench, "SCALING_PER_DEVICE", 64)
-    monkeypatch.setattr(bench, "K_SMALL", 1)
-    monkeypatch.setattr(bench, "K_LARGE", 3)
-    monkeypatch.setattr(bench, "BASELINE_FILE", tmp_path / "baseline.json")
-    # Dead-accelerator scenario: probe says fallback, sizes stay tiny.
-    monkeypatch.setattr(bench, "_require_backend", lambda *a, **k: "cpu_fallback")
-    monkeypatch.setattr(bench, "_cpu_fallback_sizes", lambda: None)
-    monkeypatch.setattr(bench.sys, "argv", ["bench.py", "--update-baseline"])
-
-    bench.main()
-
-    line = capsys.readouterr().out.strip().splitlines()[-1]
-    result = json.loads(line)
-    assert result["unit"] == "tracks/s"
-    assert result["value"] > 0
-    assert result["serial_tracks_per_s"] > 0
-    assert result["batched_tracks_per_s"] > 0
-    assert result["sweep_env_steps_per_s"] > 0
-    assert result["particle_env_steps_per_s"] > 0
-    assert result["headline_mode"] in ("batched", "serial")
-    assert all(status == "ok" for status in result["paths"].values())
-    assert result["backend"] == "cpu_fallback"
-    assert (tmp_path / "baseline.json").exists()
+class Proc:
+    def __init__(self, returncode=0, stdout="", stderr=""):
+        self.returncode, self.stdout, self.stderr = returncode, stdout, stderr
 
 
 def test_metric_subprocess_timeout_is_isolated(monkeypatch):
-    """A tunnel wedge MID-measurement (subprocess timeout) must null ONLY
-    that metric, not hang or poison the others (VERDICT r2 weak #4)."""
-    import subprocess
+    """A metric that hangs (subprocess timeout) must null ONLY that metric."""
 
     def timeout_run(*args, **kwargs):
         raise subprocess.TimeoutExpired(cmd="measure", timeout=1)
 
     monkeypatch.setattr(bench.subprocess, "run", timeout_run)
-    value, status = bench._measure_metric_in_subprocess("serial")
-    assert value is None and status == "timeout"
+    record, status = bench._measure_metric_in_subprocess("serial")
+    assert record is None and status == "timeout"
 
 
 def test_metric_subprocess_parses_last_json_line(monkeypatch):
-    class Proc:
-        returncode = 0
-        stdout = "warning noise\n{\"value\": 42.0}\n"
-        stderr = ""
+    line = json.dumps(dict(GPU, value=42.0))
+    monkeypatch.setattr(
+        bench.subprocess, "run",
+        lambda *a, **k: Proc(stdout=f"warning noise\n{line}\n"),
+    )
+    record, status = bench._measure_metric_in_subprocess("serial")
+    assert status == "ok" and record == dict(GPU, value=42.0)
 
-    monkeypatch.setattr(bench.subprocess, "run", lambda *a, **k: Proc())
-    assert bench._measure_metric_in_subprocess("serial") == (42.0, "ok")
 
-
-def test_metric_subprocess_crash_records_error(monkeypatch):
-    class Proc:
-        returncode = 1
-        stdout = ""
-        stderr = "jaxlib.mosaic: unsupported block shape"
-
-    monkeypatch.setattr(bench.subprocess, "run", lambda *a, **k: Proc())
-    value, status = bench._measure_metric_in_subprocess("batched")
-    assert value is None and "rc=1" in status and "mosaic" in status
+@pytest.mark.parametrize(
+    "proc, expected",
+    [
+        (Proc(returncode=1, stderr="XlaRuntimeError: out of memory"), "rc=1"),
+        (Proc(stdout="no json here\n"), "no JSON output"),
+    ],
+)
+def test_metric_subprocess_failure_records_error(monkeypatch, proc, expected):
+    monkeypatch.setattr(bench.subprocess, "run", lambda *a, **k: proc)
+    record, status = bench._measure_metric_in_subprocess("batched")
+    assert record is None and status.startswith(expected)
 
 
 def test_assemble_survives_partial_failure():
@@ -147,128 +65,56 @@ def test_assemble_survives_partial_failure():
               "particle_env": None}
     paths = {"serial": "ok", "batched": "rc=1: boom", "sweep": "ok",
              "particle_env": "timeout"}
-    result = bench._assemble(values, paths, "tpu")
+    result = bench._assemble(values, paths, dict(GPU, card="H100, 700 W"))
     assert result["value"] == 100.0
     assert result["headline_mode"] == "serial"
     assert result["batched_tracks_per_s"] is None
     assert result["sweep_env_steps_per_s"] == 5e6
-    assert result["backend"] == "tpu"
     assert result["paths"]["batched"].startswith("rc=1")
+    assert {k: result[k] for k in GPU} == GPU
+    assert result["card"] == "H100, 700 W"
 
 
-def _floors_baseline(tmp_path, monkeypatch, backend="tpu"):
-    import json
-
-    baseline = dict(
-        BASE,
-        backend=backend,
-        serial_tracks_per_s=400.0,
-        batched_tracks_per_s=500.0,
-        sweep_env_steps_per_s=5e7,
-        particle_env_steps_per_s=9e5,
-        particle_env_kernel_steps_per_s=7.9e5,
-        scaling_efficiency_virtual=0.63,
-    )
-    path = tmp_path / "baseline.json"
-    path.write_text(json.dumps(baseline))
-    monkeypatch.setattr(bench, "BASELINE_FILE", path)
-    return baseline
+def test_assemble_picks_the_better_dispatch_mode():
+    result = bench._assemble({"serial": 100.0, "batched": 250.0}, {}, GPU)
+    assert result["headline_mode"] == "batched"
+    assert result["value"] == 250.0
+    assert result["vs_baseline"] == 25.0
 
 
-def test_retry_below_floor_remeasures_and_keeps_better(monkeypatch, tmp_path):
-    """A first-pass sample below its healthy-window floor (shared-chip
-    window noise) is re-measured once and the better sample kept."""
-    _floors_baseline(tmp_path, monkeypatch)
+def test_main_runs_metrics_one_after_another(monkeypatch, capsys):
+    """Every metric gets its own subprocess, in order, never two at once,
+    and the JSON line carries the device the metrics ran on."""
     calls = []
+
+    def fake_run(cmd, **kwargs):
+        calls.append(cmd[-1])
+        return Proc(stdout=json.dumps(dict(GPU, value=float(len(calls)))))
+
+    monkeypatch.setattr(bench.subprocess, "run", fake_run)
+    import lynx_tpu.profiling
+
     monkeypatch.setattr(
-        bench,
-        "_measure_metric_in_subprocess",
-        lambda name: (calls.append(name), (650.0, "ok"))[1],
+        lynx_tpu.profiling, "card", lambda: "NVIDIA H100 80GB HBM3, 700 W"
     )
-    values = {"serial": 450.0, "batched": 120.0, "sweep": 6e7,
-              "particle_env": 1e6, "particle_env_kernel": 8e5,
-              "scaling": 0.7}
-    paths = {name: "ok" for name in values}
-    spent = bench._retry_below_floor(values, paths, "tpu")
-    assert calls == ["batched"] and spent == 1
-    assert values["batched"] == 650.0 and values["serial"] == 450.0
+    monkeypatch.setattr(bench.sys, "argv", ["bench.py"])
+    bench.main()
+    assert calls == list(bench.METRICS)
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert {k: result[k] for k in GPU} == GPU
+    assert result["card"] == "NVIDIA H100 80GB HBM3, 700 W"
+    assert all(status == "ok" for status in result["paths"].values())
 
 
-def test_retry_below_floor_keeps_first_when_retry_worse(monkeypatch, tmp_path):
-    _floors_baseline(tmp_path, monkeypatch)
-    monkeypatch.setattr(
-        bench, "_measure_metric_in_subprocess", lambda name: (80.0, "ok")
+def test_measure_only_refuses_the_cpu():
+    """A metric that finds no GPU fails instead of timing the CPU."""
+    proc = subprocess.run(
+        [sys.executable, str(BENCH), "--measure-only", "sweep"],
+        env=dict(os.environ, JAX_PLATFORMS="cpu"),
+        capture_output=True,
+        text=True,
+        timeout=300,
     )
-    values = {"serial": 450.0, "batched": 120.0, "sweep": 6e7,
-              "particle_env": 1e6, "particle_env_kernel": 8e5,
-              "scaling": 0.7}
-    paths = {name: "ok" for name in values}
-    bench._retry_below_floor(values, paths, "tpu")
-    assert values["batched"] == 120.0
-
-
-def test_retry_below_floor_retries_dead_metric_even_without_floors(
-    monkeypatch, tmp_path
-):
-    """With no stored baseline, only dead (None) metrics are retried."""
-    monkeypatch.setattr(bench, "BASELINE_FILE", tmp_path / "missing.json")
-    calls = []
-    monkeypatch.setattr(
-        bench,
-        "_measure_metric_in_subprocess",
-        lambda name: (calls.append(name), (99.0, "ok"))[1],
-    )
-    values = {"serial": 1.0, "batched": None, "sweep": 1.0,
-              "particle_env": 1.0, "particle_env_kernel": 1.0,
-              "scaling": 0.1}
-    paths = dict.fromkeys(values, "ok")
-    paths["batched"] = "timeout"
-    bench._retry_below_floor(values, paths, "tpu")
-    assert calls == ["batched"]
-    assert values["batched"] == 99.0 and paths["batched"] == "ok"
-
-
-def test_retry_below_floor_bounded(monkeypatch, tmp_path):
-    """A fully degraded window burns at most MAX_RETRIES extra measures."""
-    _floors_baseline(tmp_path, monkeypatch)
-    calls = []
-    monkeypatch.setattr(
-        bench,
-        "_measure_metric_in_subprocess",
-        lambda name: (calls.append(name), (None, "timeout"))[1],
-    )
-    values = dict.fromkeys(bench.METRICS, 0.0)
-    paths = dict.fromkeys(bench.METRICS, "ok")
-    spent = bench._retry_below_floor(values, paths, "tpu")
-    assert spent == bench.MAX_RETRIES and len(calls) == bench.MAX_RETRIES
-
-
-def test_retry_below_floor_ignores_mismatched_backend(monkeypatch, tmp_path):
-    """Floors recorded on another backend must not trigger re-measures
-    (a CPU run would never meet TPU floors)."""
-    _floors_baseline(tmp_path, monkeypatch, backend="tpu")
-    monkeypatch.setattr(
-        bench,
-        "_measure_metric_in_subprocess",
-        lambda name: (_ for _ in ()).throw(AssertionError("no retry")),
-    )
-    values = {name: 1.0 for name in bench.METRICS}
-    paths = dict.fromkeys(values, "ok")
-    assert bench._retry_below_floor(values, paths, "cpu") == 0
-
-
-def test_retry_below_floor_respects_deadline(monkeypatch, tmp_path):
-    """No retry may start past the wall-clock deadline — the guard must
-    never push the bench past an external driver timeout."""
-    _floors_baseline(tmp_path, monkeypatch)
-    monkeypatch.setattr(
-        bench,
-        "_measure_metric_in_subprocess",
-        lambda name: (_ for _ in ()).throw(AssertionError("no retry")),
-    )
-    values = dict.fromkeys(bench.METRICS, 0.0)
-    paths = dict.fromkeys(bench.METRICS, "ok")
-    spent = bench._retry_below_floor(
-        values, paths, "tpu", deadline=bench.time.monotonic() - 1.0
-    )
-    assert spent == 0
+    assert proc.returncode != 0
+    assert "needs a GPU" in proc.stderr
+    assert proc.stdout.strip() == ""

@@ -6,7 +6,7 @@ spanning both, and run a sharded gradient-tuning loop.  Asserts the two
 processes agree and that the distributed result matches a single-process
 run — i.e. the cross-host gradient all-reduce and replicated update are
 correct.  This is the fake-backend stand-in the reference never had for
-real multi-host TPU pods (BASELINE.md ≥2-host scaling target; launch
+real multi-host GPU clusters (BASELINE.md ≥2-host scaling target; launch
 recipe in docs/distributed.md).
 """
 

@@ -3,8 +3,8 @@
 workflows).
 
 ``optimize_speed.ipynb`` is excluded: its unoptimized-baseline cell compiles
-a 195-element graph that takes >2 min on the CPU test backend (it runs fine
-on TPU); the same optimizations are covered by ``test_speed_optimizations``.
+a 195-element graph that takes >2 min on the CPU test backend; the same
+optimizations are covered by ``test_speed_optimizations``.
 """
 
 import json

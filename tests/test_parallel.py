@@ -1,5 +1,5 @@
 """Multi-device sharding tests on the 8-virtual-device CPU mesh
-(the TPU-emulation fake backend; SURVEY.md §4 implication (d))."""
+(the virtual-device fake backend; SURVEY.md §4 implication (d))."""
 
 import jax
 import jax.numpy as jnp
@@ -218,27 +218,15 @@ def test_sharded_ppo_update_runs_and_matches():
     )
 
 
-def test_packed_moment_sweep_shards_over_settings(monkeypatch):
-    """Multi-chip mode of the round-5 packed-Gram fidelity sweep: the
-    SETTING axis shards over the mesh via shard_map (each device runs
-    the kernel on its local slab against the replicated cloud — no
-    collectives), matching the unsharded sweep."""
+def test_moment_sweep_shards_over_settings():
+    """Multi-chip mode of the particle-fidelity moment sweep: the SETTING
+    axis shards over the mesh via shard_map (each device walks its local
+    slab of settings against the replicated cloud — no collectives),
+    matching the unsharded sweep."""
     import functools
 
-    from jax.experimental import pallas as pl
-    from jax.experimental.shard_map import shard_map
-
-    import lynx_tpu.ops.pallas_track as pallas_track
     from lynx_tpu.accelerator.fused import particle_moment_plan
-    from lynx_tpu.ops.pallas_track import sweep_particle_moments
-
-    monkeypatch.setattr(
-        pallas_track.pl,
-        "pallas_call",
-        functools.partial(pl.pallas_call, interpret=True),
-    )
-    monkeypatch.setattr(pallas_track, "PARTICLE_MOMENT_SWEEP_PATH", True)
-    monkeypatch.setattr(pallas_track, "PACKED_MOMENT_SWEEP", True)
+    from lynx_tpu.ops.sweep import sweep_particle_moments
 
     B, N = 128, 1500  # 16 settings per device
     beam = lt.ParticleBeam.from_parameters(
@@ -274,11 +262,11 @@ def test_packed_moment_sweep_shards_over_settings(monkeypatch):
     rep = jax.sharding.PartitionSpec()
 
     @functools.partial(
-        shard_map,
+        jax.shard_map,
         mesh=mesh,
         in_specs=(tuple(pspec for _ in scalars), rep, rep),
         out_specs=(pspec, pspec, pspec),
-        check_rep=False,
+        check_vma=False,
     )
     def sharded_sweep(scalars, particles, weights):
         return sweep_particle_moments(entries, scalars, particles, weights)

@@ -1,41 +1,27 @@
-"""Settings-amortized particle moment sweep: one shared cloud, B settings,
-particles resident on-chip (``ops/pallas_track.fused_particle_moment_sweep``).
+"""Settings-amortized particle moment sweep: one shared cloud, B settings
+(``ops/sweep.sweep_particle_moments``).
 
-Pins (a) the XLA reference walk against dense broadcast tracking — including
+Pins the plain walk against dense broadcast tracking — including
 interleaved ACTIVE apertures, the case no moment algebra can express —
-(b) the Pallas kernel against the XLA reference in interpreter mode (the
-CPU CI analog of the TPU execution), and (c) gradients through the custom
-VJP.  Reference workload contract: BASELINE.md:27 / the reference's
-(3, 100_000)-settings sweep (``tests/test_vectorized.py:298-321``).
+its gradients against gradients through dense tracking, and its f32
+results against its f64 results.  Reference workload contract:
+BASELINE.md:27 / the reference's (3, 100_000)-settings sweep
+(``tests/test_vectorized.py:298-321``).
 """
-
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental import pallas as pl
 
 import lynx_tpu as lt
-import lynx_tpu.ops.pallas_track as pallas_track
 from lynx_tpu.accelerator.fused import particle_moment_plan
 from lynx_tpu.functional import track
-from lynx_tpu.ops.pallas_track import (
-    fused_particle_moment_sweep,
+from lynx_tpu.ops.sweep import (
+    moment_sums,
     particle_moments_from_sums,
     sweep_particle_moments,
 )
-
-
-@pytest.fixture
-def interpreted_pallas(monkeypatch):
-    monkeypatch.setattr(
-        pallas_track.pl,
-        "pallas_call",
-        functools.partial(pl.pallas_call, interpret=True),
-    )
-    monkeypatch.setattr(pallas_track, "PARTICLE_MOMENT_SWEEP_PATH", True)
 
 
 def _beam(n=3000, dtype=jnp.float64):
@@ -139,224 +125,15 @@ def test_sweep_matches_dense_tracking(with_aperture):
         )
 
 
-def test_pallas_kernel_matches_reference(interpreted_pallas, monkeypatch):
-    B = 5
-    beam = _beam(n=700, dtype=jnp.float32)
-    elements = _elements(B, with_aperture=True, dtype=jnp.float32)
-    plan = particle_moment_plan(
-        elements,
-        beam.energy,
-        lambda x: jnp.broadcast_to(jnp.reshape(jnp.asarray(x), (-1,)), (B,)),
-    )
-    entries, scalars = plan
-    particles = beam.particles[0]
-    weights = jnp.ones(particles.shape[:1], particles.dtype)
-
-    mu_k, cov_k, w_k = sweep_particle_moments(
-        entries, scalars, particles, weights
-    )
-    monkeypatch.setattr(pallas_track, "PARTICLE_MOMENT_SWEEP_PATH", False)
-    mu_r, cov_r, w_r = sweep_particle_moments(
-        entries, scalars, particles, weights
-    )
-    np.testing.assert_allclose(np.asarray(w_k), np.asarray(w_r), rtol=1e-6)
-    np.testing.assert_allclose(
-        np.asarray(mu_k), np.asarray(mu_r), rtol=1e-5, atol=1e-10
-    )
-    np.testing.assert_allclose(
-        np.asarray(cov_k), np.asarray(cov_r), rtol=1e-4, atol=1e-14
-    )
-
-
-@pytest.mark.parametrize("with_aperture", [False, True])
-def test_packed_gram_kernel_matches_reference(
-    interpreted_pallas, monkeypatch, with_aperture
-):
-    """The packed-Gram route (16 settings per MXU Gram; aperture masks via
-    sparse prefix rows; final sums via the exact affine-image sandwich)
-    must match the reference walk."""
-    monkeypatch.setattr(pallas_track, "PACKED_MOMENT_SWEEP", True)
-    B = 21  # not a multiple of 16: exercises the setting padding
-    beam = _beam(n=700, dtype=jnp.float32)
-    elements = _elements(B, with_aperture=with_aperture, dtype=jnp.float32)
-    plan = particle_moment_plan(
-        elements,
-        beam.energy,
-        lambda x: jnp.broadcast_to(jnp.reshape(jnp.asarray(x), (-1,)), (B,)),
-    )
-    entries, scalars = plan
-    particles = beam.particles[0]
-    weights = jnp.ones(particles.shape[:1], particles.dtype)
-
-    mu_k, cov_k, w_k = sweep_particle_moments(
-        entries, scalars, particles, weights
-    )
-    monkeypatch.setattr(pallas_track, "PARTICLE_MOMENT_SWEEP_PATH", False)
-    mu_r, cov_r, w_r = sweep_particle_moments(
-        entries, scalars, particles, weights
-    )
-    np.testing.assert_allclose(np.asarray(w_k), np.asarray(w_r), rtol=1e-6)
-    np.testing.assert_allclose(
-        np.asarray(mu_k), np.asarray(mu_r), rtol=1e-4, atol=1e-9
-    )
-    np.testing.assert_allclose(
-        np.asarray(cov_k), np.asarray(cov_r), rtol=1e-3, atol=1e-13
-    )
-
-
-@pytest.mark.slow
-def test_packed_gram_multichunk_multigroup_parity(
-    interpreted_pallas, monkeypatch
-):
-    """N spanning several particle chunks AND B well past one 16-setting
-    pad group: pins the cross-chunk accumulation invariant.  The v2 kernel
-    accumulates into ONE full-size resident output block (constant index
-    map), which is revisit-safe by construction; the round-4 kernel keyed
-    16-setting output blocks by a group id with the chunk loop outer,
-    revisiting each block non-consecutively — Pallas TPU does not
-    preserve output buffers across non-consecutive revisits, so it
-    silently accumulated stale data exactly at this shape (ADVICE r4)."""
-    monkeypatch.setattr(pallas_track, "PACKED_MOMENT_SWEEP", True)
-    monkeypatch.setattr(pallas_track, "_PACK_CHUNK", 4096)
-    B = 48  # 3 groups of 16
-    beam = _beam(n=20_000, dtype=jnp.float32)  # 5 chunks of 4096
-    elements = _elements(B, with_aperture=True, dtype=jnp.float32)
-    plan = particle_moment_plan(
-        elements,
-        beam.energy,
-        lambda x: jnp.broadcast_to(jnp.reshape(jnp.asarray(x), (-1,)), (B,)),
-    )
-    entries, scalars = plan
-    particles = beam.particles[0]
-    weights = jnp.ones(particles.shape[:1], particles.dtype)
-
-    mu_k, cov_k, w_k = sweep_particle_moments(
-        entries, scalars, particles, weights
-    )
-    monkeypatch.setattr(pallas_track, "PARTICLE_MOMENT_SWEEP_PATH", False)
-    mu_r, cov_r, w_r = sweep_particle_moments(
-        entries, scalars, particles, weights
-    )
-    np.testing.assert_allclose(np.asarray(w_k), np.asarray(w_r), rtol=1e-6)
-    np.testing.assert_allclose(
-        np.asarray(mu_k), np.asarray(mu_r), rtol=1e-4, atol=1e-9
-    )
-    np.testing.assert_allclose(
-        np.asarray(cov_k), np.asarray(cov_r), rtol=1e-3, atol=1e-13
-    )
-
-
-def test_packed_vs_walk_precision_bound(interpreted_pallas, monkeypatch):
-    """Pins the documented packed-Gram precision trade (STATUS.md): over
-    randomized aperture sweeps, the packed kernel's covariances stay within
-    1e-4 relative of the walk kernel's, so the 9x-throughput default cannot
-    silently degrade.  (On device the gap is MXU rounding, ~4.5e-5; in
-    interpret mode both run f32 — the bound must still hold.)"""
-    rng = np.random.default_rng(7)
-    B = 24
-    for trial in range(3):
-        beam = lt.ParticleBeam.from_parameters(
-            num_particles=1500,
-            mu_x=jnp.array([float(rng.uniform(-5e-5, 5e-5))]),
-            sigma_x=jnp.array([float(rng.uniform(1e-4, 3e-4))]),
-            sigma_y=jnp.array([float(rng.uniform(1e-4, 3e-4))]),
-            sigma_p=jnp.array([2e-3]),
-            energy=jnp.array([1.073e8]),
-            key=jax.random.PRNGKey(100 + trial),
-            dtype=jnp.float32,
-        )
-        elements = [
-            lt.Drift(jnp.array([float(rng.uniform(0.1, 0.5))])),
-            lt.Quadrupole(
-                jnp.array([0.12]),
-                k1=jnp.asarray(rng.uniform(-8, 8, B), jnp.float32),
-            ),
-            lt.Aperture(
-                x_max=jnp.array([float(rng.uniform(1.5e-4, 4e-4))]),
-                y_max=jnp.array([float(rng.uniform(1.5e-4, 4e-4))]),
-                shape=("rectangular", "elliptical")[trial % 2],
-                is_active=True,
-            ),
-            lt.Drift(jnp.array([0.3])),
-        ]
-        entries, scalars = particle_moment_plan(
-            elements,
-            beam.energy,
-            lambda x: jnp.broadcast_to(
-                jnp.reshape(jnp.asarray(x), (-1,)), (B,)
-            ),
-        )
-        particles = beam.particles[0]
-        weights = jnp.ones(particles.shape[:1], particles.dtype)
-
-        monkeypatch.setattr(pallas_track, "PACKED_MOMENT_SWEEP", True)
-        mu_p, cov_p, w_p = sweep_particle_moments(
-            entries, scalars, particles, weights
-        )
-        monkeypatch.setattr(pallas_track, "PACKED_MOMENT_SWEEP", False)
-        mu_w, cov_w, w_w = sweep_particle_moments(
-            entries, scalars, particles, weights
-        )
-        np.testing.assert_allclose(
-            np.asarray(w_p), np.asarray(w_w), rtol=1e-6
-        )
-        scale = np.abs(np.asarray(cov_w)).max(axis=(-1, -2), keepdims=True)
-        err = np.abs(np.asarray(cov_p) - np.asarray(cov_w))
-        bound = np.broadcast_to(1e-4 * scale + 1e-16, err.shape)
-        np.testing.assert_array_less(
-            err,
-            bound,
-            err_msg=f"packed cov deviates >1e-4 relative (trial {trial})",
-        )
-
-
-@pytest.mark.slow
-def test_sweep_gradients_flow(interpreted_pallas):
-    B = 4
-    beam = _beam(n=500, dtype=jnp.float32)
-    particles = beam.particles[0]
-    weights = jnp.ones(particles.shape[:1], particles.dtype)
-    elements = _elements(B, with_aperture=False, dtype=jnp.float32)
-    plan = particle_moment_plan(
-        elements,
-        beam.energy,
-        lambda x: jnp.broadcast_to(jnp.reshape(jnp.asarray(x), (-1,)), (B,)),
-    )
-    entries, scalars = plan
-
-    def loss(scalars):
-        s1, s2, w = fused_particle_moment_sweep(
-            entries, scalars, particles, weights
-        )
-        mu, cov = particle_moments_from_sums(s1, s2, w)
-        return jnp.sum(cov[:, 0, 0])
-
-    grads = jax.grad(loss)(scalars)
-
-    def loss_ref(scalars):
-        s1, s2, w = pallas_track._moment_sweep_reference(
-            entries, scalars, particles, weights
-        )
-        mu, cov = particle_moments_from_sums(s1, s2, w)
-        return jnp.sum(cov[:, 0, 0])
-
-    grads_ref = jax.grad(loss_ref)(scalars)
-    assert any(float(jnp.max(jnp.abs(g))) > 0 for g in grads)
-    for g, gr in zip(grads, grads_ref):
-        np.testing.assert_allclose(
-            np.asarray(g), np.asarray(gr), rtol=2e-4, atol=1e-8
-        )
-
-
-@pytest.mark.slow
-def test_env_kernel_method_matches_particles():
-    env = lt.envs.make_env() if hasattr(lt, "envs") else None
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_env_kernel_method_matches_particles(dtype):
     from lynx_tpu.envs import make_env
 
     env = make_env()
-    beam = _beam(n=4000, dtype=jnp.float32)
+    beam = _beam(n=4000, dtype=dtype)
     magnets = jax.random.uniform(
-        jax.random.PRNGKey(2), (6, env.num_actions), minval=-0.5, maxval=0.5
+        jax.random.PRNGKey(2), (6, env.num_actions), minval=-0.5, maxval=0.5,
+        dtype=dtype,
     )
     kernel = env.batched_particle_beam_parameters(
         magnets, beam, method="kernel"
@@ -367,78 +144,6 @@ def test_env_kernel_method_matches_particles():
     np.testing.assert_allclose(
         np.asarray(kernel), np.asarray(dense), rtol=3e-3, atol=1e-9
     )
-
-
-def test_packed_handles_multiple_apertures(interpreted_pallas, monkeypatch):
-    """Two apertures with distinct prefix maps: each mask must evaluate at
-    its own plane (prefix-row encoding), not the final coordinates."""
-    monkeypatch.setattr(pallas_track, "PACKED_MOMENT_SWEEP", True)
-    B = 16
-    beam = _beam(n=600, dtype=jnp.float32)
-    elements = [
-        lt.Drift(jnp.array([0.2])),
-        lt.Aperture(
-            x_max=jnp.array([2.5e-4]), y_max=jnp.array([2.5e-4]),
-            is_active=True,
-        ),
-        lt.Quadrupole(jnp.array([0.12]), k1=jnp.linspace(-6, 6, B)),
-        lt.Drift(jnp.array([0.5])),
-        lt.Aperture(
-            x_max=jnp.array([2e-4]), y_max=jnp.array([5e-4]),
-            shape="elliptical", is_active=True,
-        ),
-        lt.Drift(jnp.array([0.1])),
-    ]
-    entries, scalars = particle_moment_plan(
-        elements,
-        beam.energy,
-        lambda x: jnp.broadcast_to(jnp.reshape(jnp.asarray(x), (-1,)), (B,)),
-    )
-    assert sum(e[0] == "aperture" for e in entries) == 2
-    particles = beam.particles[0]
-    weights = jnp.ones(particles.shape[:1], particles.dtype)
-    mu_k, cov_k, w_k = sweep_particle_moments(
-        entries, scalars, particles, weights
-    )
-    monkeypatch.setattr(pallas_track, "PARTICLE_MOMENT_SWEEP_PATH", False)
-    mu_r, cov_r, w_r = sweep_particle_moments(
-        entries, scalars, particles, weights
-    )
-    np.testing.assert_allclose(np.asarray(w_k), np.asarray(w_r), rtol=1e-6)
-    np.testing.assert_allclose(
-        np.asarray(mu_k), np.asarray(mu_r), rtol=1e-4, atol=1e-9
-    )
-    np.testing.assert_allclose(
-        np.asarray(cov_k), np.asarray(cov_r), rtol=1e-3, atol=1e-13
-    )
-    # Both apertures actually cut.
-    dense = _dense_reference(elements, _beam(n=600, dtype=jnp.float32), B)
-    np.testing.assert_allclose(
-        np.asarray(w_r),
-        np.asarray(dense.num_particles_survived),
-        rtol=1e-6,
-    )
-    assert float(jnp.min(w_r)) < 600
-
-
-def test_walk_kernel_routes_reference_above_vmem_cap(monkeypatch):
-    """N beyond the VMEM-resident cap must fall back to the XLA reference
-    (not crash) on the walk route."""
-    monkeypatch.setattr(pallas_track, "PACKED_MOMENT_SWEEP", False)
-    monkeypatch.setattr(pallas_track, "PARTICLE_MOMENT_SWEEP_PATH", True)
-    monkeypatch.setattr(pallas_track, "MOMENT_SWEEP_MAX_PARTICLES", 256)
-    B = 4
-    beam = _beam(n=512, dtype=jnp.float32)  # > the (patched) cap
-    elements = _elements(B, with_aperture=True, dtype=jnp.float32)
-    entries, scalars = particle_moment_plan(
-        elements,
-        beam.energy,
-        lambda x: jnp.broadcast_to(jnp.reshape(jnp.asarray(x), (-1,)), (B,)),
-    )
-    particles = beam.particles[0]
-    weights = jnp.ones(particles.shape[:1], particles.dtype)
-    mu, cov, w = sweep_particle_moments(entries, scalars, particles, weights)
-    assert bool(jnp.all(jnp.isfinite(mu))) and bool(jnp.all(w > 0))
 
 
 def test_plan_rejects_active_screen():
@@ -453,39 +158,6 @@ def test_plan_rejects_active_screen():
         lambda x: jnp.broadcast_to(jnp.reshape(jnp.asarray(x), (-1,)), (B,)),
     )
     assert plan is None
-
-
-def test_packed_b_slab_split_parity(interpreted_pallas, monkeypatch):
-    """B beyond _PACK_B_SLAB runs as sequential setting slabs (bounding
-    the kernel's VMEM transients for arbitrarily large sweeps); results
-    must equal the reference walk across the slab boundary."""
-    monkeypatch.setattr(pallas_track, "PACKED_MOMENT_SWEEP", True)
-    monkeypatch.setattr(pallas_track, "_PACK_B_SLAB", 32)
-    B = 80  # 3 slabs: 32 + 32 + 16
-    beam = _beam(n=600, dtype=jnp.float32)
-    elements = _elements(B, with_aperture=True, dtype=jnp.float32)
-    entries, scalars = particle_moment_plan(
-        elements,
-        beam.energy,
-        lambda x: jnp.broadcast_to(jnp.reshape(jnp.asarray(x), (-1,)), (B,)),
-    )
-    particles = beam.particles[0]
-    weights = jnp.ones(particles.shape[:1], particles.dtype)
-
-    mu_k, cov_k, w_k = sweep_particle_moments(
-        entries, scalars, particles, weights
-    )
-    monkeypatch.setattr(pallas_track, "PARTICLE_MOMENT_SWEEP_PATH", False)
-    mu_r, cov_r, w_r = sweep_particle_moments(
-        entries, scalars, particles, weights
-    )
-    np.testing.assert_allclose(np.asarray(w_k), np.asarray(w_r), rtol=1e-6)
-    np.testing.assert_allclose(
-        np.asarray(mu_k), np.asarray(mu_r), rtol=1e-4, atol=1e-9
-    )
-    np.testing.assert_allclose(
-        np.asarray(cov_k), np.asarray(cov_r), rtol=1e-3, atol=1e-13
-    )
 
 
 def test_identity_only_plan_requires_batch_size():
@@ -517,32 +189,152 @@ def test_identity_only_plan_requires_batch_size():
     )
 
 
-def test_chunked_backward_matches_unchunked(interpreted_pallas, monkeypatch):
-    """The settings-chunked backward (memory-bounding scan; review r5)
-    must produce the same gradients as the single-vjp path."""
-    B = 20
-    beam = _beam(n=400, dtype=jnp.float32)
-    particles = beam.particles[0]
-    weights = jnp.ones(particles.shape[:1], particles.dtype)
-    elements = _elements(B, with_aperture=False, dtype=jnp.float32)
-    entries, scalars = particle_moment_plan(
-        elements,
-        beam.energy,
+@pytest.mark.parametrize(
+    "shapes",
+    [
+        ("rectangular", "rectangular"),
+        ("rectangular", "elliptical"),
+        ("elliptical", "elliptical"),
+    ],
+)
+def test_multiple_apertures_match_dense_tracking(shapes):
+    """Two apertures with distinct prefix maps: each mask must evaluate at
+    its own plane, not at the final coordinates."""
+    B = 7
+    beam = _beam(n=2000)
+    elements = [
+        lt.Drift(jnp.array([0.2], jnp.float64), dtype=jnp.float64),
+        lt.Aperture(
+            x_max=jnp.array([2.5e-4]), y_max=jnp.array([2.5e-4]),
+            shape=shapes[0], is_active=True, dtype=jnp.float64,
+        ),
+        lt.Quadrupole(
+            jnp.array([0.12]), k1=jnp.linspace(-6, 6, B), dtype=jnp.float64
+        ),
+        lt.Drift(jnp.array([0.5]), dtype=jnp.float64),
+        lt.Aperture(
+            x_max=jnp.array([2e-4]), y_max=jnp.array([5e-4]),
+            shape=shapes[1], is_active=True, dtype=jnp.float64,
+        ),
+        lt.Drift(jnp.array([0.1]), dtype=jnp.float64),
+    ]
+    (mu, cov), w_sum = _sweep(elements, beam, B)
+    assert sum(e[0] == "aperture" for e in particle_moment_plan(
+        elements, beam.energy,
         lambda x: jnp.broadcast_to(jnp.reshape(jnp.asarray(x), (-1,)), (B,)),
+    )[0]) == 2
+    dense = _dense_reference(elements, beam, B)
+    np.testing.assert_allclose(
+        np.asarray(w_sum), np.asarray(dense.num_particles_survived),
+        rtol=1e-12,
+    )
+    assert float(jnp.min(w_sum)) < 2000
+    np.testing.assert_allclose(
+        np.asarray(jnp.sqrt(cov[:, 0, 0])), np.asarray(dense.sigma_x),
+        rtol=1e-9,
+    )
+    np.testing.assert_allclose(
+        np.asarray(mu[:, 2]), np.asarray(dense.mu_y), rtol=1e-9, atol=1e-18
     )
 
-    def loss(scalars):
-        s1, s2, w = fused_particle_moment_sweep(
-            entries, scalars, particles, weights
-        )
-        mu, cov = particle_moments_from_sums(s1, s2, w)
+
+@pytest.mark.parametrize("with_aperture", [False, True])
+def test_sweep_gradients_match_dense_tracking(with_aperture):
+    """d(sum of sigma_x^2 + mu_x^2)/d k1 through the sweep equals the
+    gradient through dense broadcast tracking."""
+    B = 5
+    beam = _beam(n=1500)
+    k1 = jnp.linspace(-8.0, 8.0, B)
+
+    def elements_of(k1):
+        elements = _elements(B, with_aperture)
+        elements[1] = elements[1].replace(k1=k1)
+        return elements
+
+    def sweep_loss(k1):
+        (mu, cov), _ = _sweep(elements_of(k1), beam, B)
         return jnp.sum(cov[:, 0, 0]) + jnp.sum(mu[:, 0] ** 2)
 
-    monkeypatch.setattr(pallas_track, "_BWD_SETTING_CHUNK", 1024)
-    g_single = jax.grad(loss)(scalars)
-    monkeypatch.setattr(pallas_track, "_BWD_SETTING_CHUNK", 8)  # 3 slices
-    g_chunked = jax.grad(loss)(scalars)
-    for gs, gc in zip(g_single, g_chunked):
-        np.testing.assert_allclose(
-            np.asarray(gc), np.asarray(gs), rtol=1e-5, atol=1e-10
+    def dense_loss(k1):
+        out = _dense_reference(elements_of(k1), beam, B)
+        return jnp.sum(out.sigma_x**2) + jnp.sum(out.mu_x**2)
+
+    grad = jax.grad(sweep_loss)(k1)
+    expected = jax.grad(dense_loss)(k1)
+    assert float(jnp.max(jnp.abs(expected))) > 0
+    np.testing.assert_allclose(
+        np.asarray(grad), np.asarray(expected), rtol=1e-7,
+        atol=1e-7 * float(jnp.max(jnp.abs(expected))),
+    )
+
+
+@pytest.mark.parametrize("offset", [0.0, 6e-4])
+def test_f32_sweep_matches_f64(offset):
+    """The shifted-moments walk keeps f32 spot sizes within 1e-5 of f64
+    even when the beam sits far off axis relative to its size."""
+    B = 6
+    results = {}
+    for dtype in (jnp.float32, jnp.float64):
+        beam = lt.ParticleBeam.from_parameters(
+            num_particles=3000,
+            mu_x=jnp.array([offset]),
+            sigma_x=jnp.array([1.75e-5]),
+            sigma_y=jnp.array([1.75e-4]),
+            energy=jnp.array([1.073e8]),
+            key=jax.random.PRNGKey(0),
+            dtype=jnp.float64,
         )
+        beam = lt.ParticleBeam(
+            beam.particles.astype(jnp.float32).astype(dtype),
+            beam.energy.astype(dtype),
+        )
+        (mu, cov), _ = _sweep(_elements(B, True, dtype=dtype), beam, B)
+        results[dtype] = (np.asarray(mu), np.sqrt(np.asarray(cov[:, 0, 0])))
+    np.testing.assert_allclose(
+        results[jnp.float32][1], results[jnp.float64][1], rtol=1e-5
+    )
+    np.testing.assert_allclose(
+        results[jnp.float32][0][:, 0], results[jnp.float64][0][:, 0],
+        rtol=1e-5, atol=1e-5 * 1.75e-5,
+    )
+
+
+@pytest.mark.parametrize("shape", ["rectangular", "elliptical"])
+def test_moment_sums_match_numpy(shape):
+    """The raw walk: one identity-plus-scalar map, one aperture, weighted
+    sums over the surviving particles."""
+    rng = np.random.default_rng(3)
+    n, B = 400, 3
+    particles = rng.normal(0, 1e-3, (n, 7))
+    particles[:, 6] = 1.0
+    weights = rng.uniform(0.5, 1.0, n)
+    scale = np.array([1.0, 2.0, 0.5])
+    layout = [[1.0 if i == j else 0.0 for j in range(7)] for i in range(7)]
+    layout[0][0] = 0  # x -> scale_b * x
+    half = np.array([1e-3, 2e-3, 5e-4])
+    zero = np.zeros(B)
+    entries = (("map", layout), ("aperture", 1, 1, 2, 2, shape))
+    scalars = tuple(jnp.asarray(v) for v in (scale, half, zero))
+    s1, s2, w_sum = moment_sums(
+        entries, scalars, jnp.asarray(particles), jnp.asarray(weights)
+    )
+    for b in range(B):
+        coords = particles.copy()
+        coords[:, 0] *= scale[b]
+        xs, ys = coords[:, 0], coords[:, 2]
+        if shape == "rectangular":
+            alive = (np.abs(xs) < half[b]) & (np.abs(ys) < half[b])
+        else:
+            alive = xs**2 / half[b] ** 2 + ys**2 / half[b] ** 2 <= 1.0
+        w = weights * alive
+        np.testing.assert_allclose(float(w_sum[b]), w.sum(), rtol=1e-12)
+        np.testing.assert_allclose(
+            np.asarray(s1[b]), (w[:, None] * coords).sum(0), rtol=1e-10,
+            atol=1e-16,
+        )
+        np.testing.assert_allclose(
+            np.asarray(s2[b]), (w[:, None] * coords).T @ coords, rtol=1e-10,
+            atol=1e-16,
+        )
+    mu, cov = particle_moments_from_sums(s1, s2, w_sum)
+    assert mu.shape == (B, 7) and cov.shape == (B, 7, 7)

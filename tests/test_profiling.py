@@ -40,3 +40,19 @@ def test_device_op_profile_returns_attributed_rows():
     # Sorted by descending time.
     times = [r["us_per_iter"] for r in rows]
     assert times == sorted(times, reverse=True)
+
+
+def test_device_busy_seconds_is_positive_and_bounded():
+    """The union of device intervals per call: positive, and no more than
+    the host-clock time of the traced calls."""
+    import time
+
+    from lynx_tpu.profiling import device_busy_seconds
+
+    x = jnp.ones((256, 256))
+    f = jax.jit(lambda x: jnp.sin(x) @ x.T)
+    jax.block_until_ready(f(x))
+    start = time.perf_counter()
+    busy = device_busy_seconds(lambda x: jnp.sin(x) @ x.T, x, iters=3)
+    elapsed = time.perf_counter() - start
+    assert 0 < busy < elapsed

@@ -214,19 +214,3 @@ def test_misaligned_screen_shifts_both_beam_types_identically():
     # appears HIGHER in y, and the camera flip maps +y to lower row index.
     assert shifts["parameter"][1] < -1
     assert shifts["parameter"][0] < -1
-
-
-def test_broadcast_preserves_histogram_window():
-    """Screen.broadcast must carry tuning attributes: dropping
-    histogram_window silently sent batched flagship screen reads down the
-    scatter fallback on TPU (4.7x slower; found on device round 3)."""
-    import lynx_tpu as lt
-
-    screen = lt.Screen(
-        resolution=(2448, 2040),
-        pixel_size=jnp.array([3.5488e-6, 2.5003e-6]),
-        is_active=True,
-        name="s",
-    )
-    screen.histogram_window = (256, 1024)
-    assert screen.broadcast((8,)).histogram_window == (256, 1024)

@@ -2,8 +2,7 @@
 100k-particle beam, active screen, track + read < 0.1 s on CPU).
 
 On the CPU test backend we allow a generous warm-execution budget — the
-hard performance gate runs on TPU via ``bench.py`` (42x the reference's
-bar at last measurement)."""
+device numbers come from ``bench.py`` on the GPU."""
 
 import time
 
@@ -34,8 +33,8 @@ def test_ares_ea_track_and_read_speed():
 
     # Enforce the reference's own CPU bar (< 0.1 s warm; reference
     # ``tests/test_speed.py:21-28``) — we run ~15-35 ms here even with
-    # x64 on.  Best-of-3 irons out scheduler noise; the TPU figure and the
-    # 20% regression gate live in bench.py.
+    # x64 on.  Best-of-3 irons out scheduler noise; the GPU figures live
+    # in bench.py.
     elapsed = min(
         _timed_call(jitted, segment, beam),
         _timed_call(jitted, segment, beam),

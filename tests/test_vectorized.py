@@ -505,47 +505,64 @@ def test_screen_length_broadcast_shape():
 
 def test_batched_track_identical_across_kernel_paths(monkeypatch):
     """The batched ParameterBeam sweep must produce the same moments on
-    the dense XLA path, the merged-table path, and the fused Pallas path
-    (interpret mode) — pinning that each fast path handles batching."""
-    import functools
-
-    from jax.experimental import pallas as pl
-
+    the dense matrix fold, the sparse-table path (flat batch at or above
+    ``BATCH_LAST_THRESHOLD``) and the merged-map path — pinning that each
+    path handles batching."""
     import lynx_tpu.accelerator.segment as segment_mod
-    import lynx_tpu.ops.pallas_track as pallas_track
 
-    B = max(segment_mod.PALLAS_SWEEP_THRESHOLD, 8)
+    B = 2 * segment_mod.BATCH_LAST_THRESHOLD
     segment = _segment_batched(jnp.linspace(-4.0, 4.0, B))
     beam = _parameter_beam((B,))
 
-    monkeypatch.setattr(segment_mod, "FUSED_SWEEP_PATH", False)
-    dense = segment.track(beam, platform="cpu")
-    merged = segment.transfer_maps_merged(incoming_beam=beam).track(
-        beam, platform="cpu"
-    )
-
-    monkeypatch.setattr(
-        pallas_track.pl,
-        "pallas_call",
-        functools.partial(pl.pallas_call, interpret=True),
-    )
-    monkeypatch.setattr(segment_mod, "FUSED_SWEEP_PATH", True)
-    fused = segment.track(beam, platform="tpu")
+    table = segment.track(beam)
+    merged = segment.transfer_maps_merged(incoming_beam=beam).track(beam)
+    monkeypatch.setattr(segment_mod, "BATCH_LAST_THRESHOLD", 10 * B)
+    dense = segment.track(beam)
 
     for stat in ("mu_x", "sigma_x", "mu_y", "sigma_y", "sigma_p"):
+        for name, result in (("merged", merged), ("table", table)):
+            np.testing.assert_allclose(
+                np.asarray(getattr(result, stat)),
+                np.asarray(getattr(dense, stat)),
+                rtol=1e-5,
+                atol=1e-12,
+                err_msg=f"{name} {stat}",
+            )
+
+
+_TABLE_KINDS = sorted(
+    set(ELEMENT_FACTORIES) - {"aperture", "bpm", "marker", "cavity"}
+)
+
+
+@pytest.mark.parametrize("kind", _TABLE_KINDS)
+def test_table_sweep_matches_dense_fold(monkeypatch, kind):
+    """Above ``BATCH_LAST_THRESHOLD`` a run of maps is composed as a sparse
+    table of (B,) cells; it must give the moments of the dense matrix
+    fold, element kind by element kind."""
+    import lynx_tpu.accelerator.segment as segment_mod
+
+    B = segment_mod.BATCH_LAST_THRESHOLD + 88
+    segment = lt.Segment(
+        [
+            lt.Drift(length=jnp.array([0.3])),
+            ELEMENT_FACTORIES[kind]((B,)),
+            lt.Drift(length=jnp.array([0.2])),
+        ]
+    )
+    beam = _parameter_beam((B,))
+    table = segment.track(beam)
+    monkeypatch.setattr(segment_mod, "BATCH_LAST_THRESHOLD", 10 * B)
+    dense = segment.track(beam)
+    for stat in ("mu_x", "mu_xp", "sigma_x", "sigma_xp", "mu_y", "sigma_y",
+                 "sigma_p"):
         np.testing.assert_allclose(
-            np.asarray(getattr(merged, stat)),
+            np.asarray(getattr(table, stat)),
             np.asarray(getattr(dense, stat)),
             rtol=1e-5,
-            atol=1e-12,
-            err_msg=f"merged {stat}",
-        )
-        np.testing.assert_allclose(
-            np.asarray(getattr(fused, stat)),
-            np.asarray(getattr(dense, stat)),
-            rtol=1e-4,
-            atol=1e-9,
-            err_msg=f"fused {stat}",
+            # f32 centroids that cross zero: 1e-5 of the beam size.
+            atol=1e-5 * 1.75e-4,
+            err_msg=stat,
         )
 
 
